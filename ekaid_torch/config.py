@@ -1,0 +1,302 @@
+"""Two-tier config: dataclass defaults + strict YAML overlay.
+
+The port's own copy of the reference package's config schema. Field
+names and defaults are the same, so `configs/smoke.yaml` and
+`configs/mimic.yaml` load unchanged. Unknown YAML keys raise; values are
+coerced as the reference does (literal_eval, then type coercion).
+
+Sections the port does not use yet (mesh, detector, training knobs) are
+kept so that every existing YAML file still validates.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from ast import literal_eval
+from dataclasses import dataclass, field
+from typing import Any, Optional, Tuple
+
+import yaml
+
+
+def _frozen(cls):
+    cls = dataclass(frozen=True)(cls)
+    if not hasattr(cls, "replace"):
+        cls.replace = lambda self, **kw: dataclasses.replace(self, **kw)
+    return cls
+
+
+@_frozen
+class ChangeDetectorConfig:
+    input_dim: int = 2052
+    dim: int = 128               # pooled-attention embed dim
+    feat_dim: int = 1026
+    att_dim: int = 1024          # node feature dim after projection
+    att_head: int = 4
+    nongt_dim: int = 52          # attention width over the node axis
+    spa_label_num: int = 11
+    sem_label_num: int = 3
+    dir_num: int = 2
+    pos_emb_dim: int = 64
+    coef_sem: float = 0.333
+    coef_spa: float = 0.333
+    # 'sequential': the three relation encoders run as cumulative
+    # residuals (the reference as executed); 'parallel': independent
+    # branches mixed with coef_sem/coef_spa.
+    branch_mix: str = "sequential"
+    # 'reference': 2x the direction-1 attention only (as executed);
+    # 'sum': self + both directions.
+    dir_reduce: str = "reference"
+    # 'off' only in the port: bef and aft run as two [B] passes.
+    pair_batch: str = "off"
+
+
+@_frozen
+class SpeakerConfig:
+    input_dim: int = 1024        # == change_detector.att_dim
+    rnn_size: int = 512
+    embed_input_dim: int = 3072  # 3 * input_dim (bef, diff, aft)
+    embed_dim: int = 1024
+    drop_prob_lm: float = 0.5
+    word_embed_size: int = 300
+    vocab_size: int = 148
+    seq_length: int = 90
+    pos_classes: int = 16
+    decoding_constraint: int = 0  # ban repeating the previous token
+    beam_size: int = 1
+    group_size: int = 1
+    diversity_lambda: float = 0.5
+    temperature: float = 1.0
+    scan_unroll: int = 1
+    # reference-package decode knobs; the port's greedy kernel refuses
+    # both (they rewrite the step the kernel replaces)
+    fused_core: bool = False
+    weight_quant: str = "none"
+    # reference-package kernel selector; the port picks by the tensor's
+    # device instead (CUDA -> kernel, CPU -> plain torch loop)
+    decode_kernel: str = "auto"
+    remat: str = "none"
+    train_hoist: bool = False
+    # BOS token fed at step 0 of free-running decode (the reference
+    # primes with index 2 although '<start>' is 1; kept for parity)
+    bos_token: int = 2
+
+
+@_frozen
+class QuestionConfig:
+    max_len: int = 20
+    word_emb_dim: int = 300      # doubled by the dual embedding
+    hidden_dim: int = 1024       # == speaker.embed_dim
+    dropout_word: float = 0.0
+    dropout_att: float = 0.2
+    # 'fixed': per-sample softmax over tokens; 'reference': the
+    # reference's transposed-softmax batch scramble, bit for bit
+    att_mode: str = "fixed"
+
+
+@_frozen
+class SplitDataConfig:
+    batch_size: int = 64
+    seq_per_img: int = 1
+    max_samples: Optional[int] = None
+    empty_image: bool = False
+
+
+@_frozen
+class DataConfig:
+    dataset: str = "mimic_diff_vqa"
+    num_nodes: int = 52
+    node_one_num: int = 26
+    feature_dim: int = 1024
+    adj_pad: int = 100           # stored adjacency is 100x100
+    vocab_json: str = "data/vocab_mimic_VQA.json"
+    splits_json: str = "data/splits_mimic_VQA.json"
+    h5_label_file: str = "data/VQA_mimic_dataset.h5"
+    feature_h5: str = "data/cmb_bbox_di_feats.hdf5"
+    gt_captions: str = "data/mimic_gt_captions_%s.json"
+    feature_mode: str = "both"
+    num_workers: int = -1
+    prefetch: int = 2
+    eval_wire: str = "compact"
+    eval_device_cache: int = 1024
+    train: SplitDataConfig = field(default_factory=SplitDataConfig)
+    val: SplitDataConfig = field(
+        default_factory=lambda: SplitDataConfig(batch_size=64))
+    test: SplitDataConfig = field(
+        default_factory=lambda: SplitDataConfig(batch_size=64))
+
+
+@_frozen
+class OptimConfig:
+    type: str = "adam"
+    lr: float = 1e-4
+    alpha: float = 0.9
+    beta: float = 0.999
+    epsilon: float = 1e-8
+    weight_decay: float = 0.0
+    step_size: int = 15
+    gamma: float = 0.1
+    grad_clip: float = 0.0
+
+
+@_frozen
+class TrainConfig:
+    max_iter: int = 40000
+    max_epoch: int = 20
+    snapshot_interval: int = 2000
+    log_interval: int = 50
+    scheduled_sampling_start: int = -1
+    scheduled_sampling_increase_every: int = 5
+    scheduled_sampling_increase_prob: float = 0.05
+    scheduled_sampling_max_prob: float = 0.25
+    graph: str = "all"           # all | semantic | spatial | implicit | i+s
+    setting: str = "mode2"
+    att_reg_weight: float = 2.5e-3
+    entropy_weight: float = 0.0
+    length_buckets: Tuple[int, ...] = ()
+    accum_steps: int = 1
+    seed: int = 1238
+    optim: OptimConfig = field(default_factory=OptimConfig)
+
+
+@_frozen
+class MeshConfig:
+    data: int = -1
+    model: int = 1
+    axis_names: Tuple[str, str] = ("data", "model")
+
+
+@_frozen
+class DtypeConfig:
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    softmax_dtype: str = "float32"
+    train_param_cast: bool = False
+
+
+@_frozen
+class DetectorConfig:
+    image_size: int = 1024
+    num_anatomy_classes: int = 26
+    num_disease_classes: int = 22
+    fpn_channels: int = 256
+    roi_feat_dim: int = 1024
+    pre_nms_topk: int = 1000
+    post_nms_topk: int = 1000
+    extract_topk: int = 0
+    select_impl: str = "topk"
+    nms_thresh: float = 0.5
+    score_thresh: float = 0.0
+    proposals_per_image: int = 1000
+    roi_pool_size: int = 7
+    batch_size: int = 8
+    extract_batch_size: int = 8
+    norm: str = "gn"
+    stride_in_1x1: bool = False
+    s2d_stem: bool = True
+    preprocess: str = "unit"
+    pixel_mean: tuple = (103.530, 116.280, 123.675)
+    pixel_std: tuple = (1.0, 1.0, 1.0)
+    roi_backend: str = "auto"
+    roi_group: int = 8
+    roi_unroll: int = 0
+    rpn_topk: str = "exact"
+    rpn_fused_preds: bool = False
+
+
+@_frozen
+class Config:
+    exp_dir: str = "./experiments"
+    exp_name: str = ""
+    model_type: str = ""
+    change_detector: ChangeDetectorConfig = field(
+        default_factory=ChangeDetectorConfig)
+    speaker: SpeakerConfig = field(default_factory=SpeakerConfig)
+    question: QuestionConfig = field(default_factory=QuestionConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    dtypes: DtypeConfig = field(default_factory=DtypeConfig)
+    detector: DetectorConfig = field(default_factory=DetectorConfig)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def to_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2)
+
+    def replace(self, **kwargs) -> "Config":
+        return dataclasses.replace(self, **kwargs)
+
+
+def default_config() -> Config:
+    return Config()
+
+
+def _decode_value(v: Any) -> Any:
+    if not isinstance(v, str):
+        return v
+    try:
+        return literal_eval(v)
+    except (ValueError, SyntaxError):
+        return v
+
+
+def _coerce(value: Any, old: Any, full_key: str) -> Any:
+    if old is None or value is None:
+        return value
+    t_old, t_new = type(old), type(value)
+    if t_old is t_new:
+        return value
+    if isinstance(old, bool) and isinstance(value, int):
+        return bool(value)
+    if (isinstance(old, bool) and isinstance(value, str)
+            and value.lower() in ("true", "false")):
+        return value.lower() == "true"
+    if isinstance(old, float) and isinstance(value, int):
+        return float(value)
+    if isinstance(old, str):
+        return str(value)
+    if isinstance(old, tuple) and isinstance(value, list):
+        return tuple(value)
+    if isinstance(old, list) and isinstance(value, tuple):
+        return list(value)
+    raise ValueError(
+        f"Type mismatch ({t_old} vs {t_new}) with values ({old} vs {value}) "
+        f"for config key: {full_key}")
+
+
+def _merge_into(obj: Any, overrides: dict, stack: str = "") -> Any:
+    if not dataclasses.is_dataclass(obj):
+        raise TypeError(f"cannot merge into non-dataclass at {stack!r}")
+    names = {f.name for f in dataclasses.fields(obj)}
+    updates = {}
+    for k, v in overrides.items():
+        full_key = f"{stack}.{k}" if stack else k
+        if k not in names:
+            raise KeyError(f"Non-existent config key: {full_key}")
+        cur = getattr(obj, k)
+        if isinstance(v, dict):
+            updates[k] = _merge_into(cur, v, full_key)
+        else:
+            updates[k] = _coerce(_decode_value(v), cur, full_key)
+    return dataclasses.replace(obj, **updates)
+
+
+def merge_overrides(cfg: Config, overrides: dict) -> Config:
+    return _merge_into(cfg, overrides)
+
+
+def load_config(yaml_path: Optional[str] = None,
+                overrides: Optional[dict] = None) -> Config:
+    """Defaults + optional YAML overlay + dict overrides."""
+    cfg = default_config()
+    if yaml_path is not None:
+        with open(yaml_path) as f:
+            loaded = yaml.safe_load(f) or {}
+        cfg = merge_overrides(cfg, loaded)
+    if overrides:
+        cfg = merge_overrides(cfg, overrides)
+    return cfg

@@ -1,0 +1,100 @@
+"""Build and load the port's CUDA kernels.
+
+Each source under `ekaid_torch/csrc/` is compiled by `nvcc` for sm_90a
+into a shared library with a plain C interface under `build/ekaid_torch/`
+at the repository root, on first use, and loaded with ctypes. A library
+is named by a hash of its source, the headers beside it, the nvcc flags
+and the nvcc version, and is reused only while all of them are
+unchanged. Nothing here runs at import time.
+
+    python -m ekaid_torch.kernels      # build every kernel, print seconds
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent.parent / "build" / "ekaid_torch"
+SOURCES = {"greedy_decode": CSRC / "greedy_decode.cu"}
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+                           "a machine with the CUDA toolkit")
+    return path
+
+
+def _key(name: str, compiler: str) -> str:
+    """Hash of what the library of `name` is built from."""
+    h = hashlib.sha256()
+    for f in [SOURCES[name], *sorted(CSRC.glob("*.cuh"))]:
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(subprocess.run([compiler, "--version"], capture_output=True,
+                            check=True).stdout)
+    return h.hexdigest()[:16]
+
+
+def build(name: str) -> Path:
+    """Compile one kernel source unless a library built from the same
+    inputs exists; the compiler's resource report goes to
+    build/ekaid_torch/<name>.log."""
+    compiler = nvcc()
+    src = SOURCES[name]
+    lib = BUILD / f"lib{name}-{_key(name, compiler)}.so"
+    if lib.exists():
+        return lib
+    BUILD.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+    os.close(fd)
+    proc = subprocess.run([compiler, *NVCC_FLAGS, "-o", tmp, str(src)],
+                          capture_output=True, text=True)
+    (BUILD / f"{name}.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+    os.replace(tmp, lib)                     # atomic for concurrent builds
+    return lib
+
+
+def build_all() -> float:
+    """Build every kernel; returns the wall seconds."""
+    t0 = time.perf_counter()
+    for name in SOURCES:
+        build(name)
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes handle of one kernel library, built if needed."""
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build(name)))
+        lib.ekaid_error_string.argtypes = [ctypes.c_int]
+        lib.ekaid_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return _libs[name]
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.ekaid_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+if __name__ == "__main__":
+    print(f"built {sorted(SOURCES)} in {build_all():.1f} s")

@@ -1,0 +1,46 @@
+"""Import hygiene of the port: ekaid_torch and chip_smoke.py load neither
+JAX nor the reference package. Runs in a fresh interpreter, because this
+test process has JAX loaded already."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+sys.path.insert(0, sys.argv[1])
+import ekaid_torch
+names = [m.name for m in pkgutil.walk_packages(ekaid_torch.__path__,
+                                               "ekaid_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+import torch, statistics, subprocess, threading, argparse
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                       "ekaid_tpu"))
+print(json.dumps({"modules": names, "loaded": loaded}))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    proc = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT)],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "ekaid_torch.models.greedy_decode" in rec["modules"]
+    assert "ekaid_torch.serving.engine" in rec["modules"]
+    assert rec["loaded"] == []
+
+
+def test_port_sources_name_no_reference_import():
+    for path in (ROOT / "ekaid_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                assert not words[1].startswith(("jax", "flax", "ekaid_tpu")), \
+                    f"{path}: {line}"
