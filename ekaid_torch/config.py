@@ -5,8 +5,12 @@ names and defaults are the same, so `configs/smoke.yaml` and
 `configs/mimic.yaml` load unchanged. Unknown YAML keys raise; values are
 coerced as the reference does (literal_eval, then type coercion).
 
-Sections the port does not use yet (mesh, detector, training knobs) are
-kept so that every existing YAML file still validates.
+Sections the port does not use yet (mesh, training knobs) are kept so
+that every existing YAML file still validates. Of the detector section,
+the TPU schedule knobs (`s2d_stem`, `roi_group`, `roi_unroll`,
+`rpn_fused_preds`) are accepted and change nothing, since each gives
+the same outputs as its default in the reference; `rpn_topk='approx'`
+runs the exact sort, as the reference does off the TPU.
 """
 
 from __future__ import annotations

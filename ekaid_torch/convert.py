@@ -1,11 +1,13 @@
 """Weight bridge: a flax param tree of the reference package -> the port.
 
 The port's modules carry the reference package's parameter names and
-layouts (kernels stay [in, out]; LSTM gates (i, f, g, o); GRU gates
-(r, z, n); weight-norm {v, g}), so the bridge is a rename of nested-dict
-paths to `state_dict()` keys joined by '.'. Every leaf is consumed
-exactly once; a leaf the model lacks, a parameter the tree lacks, or a
-shape mismatch raises.
+layouts (Dense kernels stay [in, out]; LSTM gates (i, f, g, o); GRU
+gates (r, z, n); weight-norm {v, g}; norm scale/bias), so the bridge is
+a rename of nested-dict paths to `state_dict()` keys joined by '.'. The
+one change of layout: convolution kernels, the 4-D leaves, go from
+flax's HWIO to torch's OIHW (the detector's stem keeps its [7, 7, C, 64]
+parameter as a 7x7 conv). Every leaf is consumed exactly once; a leaf
+the model lacks, a parameter the tree lacks, or a shape mismatch raises.
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ def load_flax_params(model: torch.nn.Module, tree: Mapping
     with torch.no_grad():
         for name, p in params.items():
             value = leaves[name]
+            if value.ndim == 4:                       # HWIO -> OIHW
+                value = value.transpose(3, 2, 0, 1)
             if tuple(value.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: tree shape {value.shape}, model "
                                  f"shape {tuple(p.shape)}")

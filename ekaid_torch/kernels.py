@@ -19,14 +19,27 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build" / "ekaid_torch"
-SOURCES = {"greedy_decode": CSRC / "greedy_decode.cu"}
+SOURCES = {"greedy_decode": CSRC / "greedy_decode.cu",
+           "roi_align": CSRC / "roi_align.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_I, _P = ctypes.c_int, ctypes.c_void_p
+# each library's entry point: (name, argtypes); every one returns a CUDA
+# error code (int)
+ENTRY = {
+    "greedy_decode": ("ekaid_greedy_decode", [_I, _P, _P, _P, _P]),
+    # dtype, round_a, level ptrs, heights, levels, meta, fmeta, out, n, C,
+    # out_size, sampling ratio, stream
+    "roi_align": ("ekaid_roi_align", [_I, _I, _P, _P, _I, _P, _P, _P,
+                                      _I, _I, _I, _I, _P]),
+}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -73,19 +86,25 @@ def build(name: str) -> Path:
 
 
 def build_all() -> float:
-    """Build every kernel; returns the wall seconds."""
+    """Build every kernel, one nvcc per source, all started together;
+    returns the wall seconds."""
     t0 = time.perf_counter()
-    for name in SOURCES:
-        build(name)
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        for fut in [pool.submit(build, name) for name in SOURCES]:
+            fut.result()
     return time.perf_counter() - t0
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of one kernel library, built if needed."""
+    """The ctypes handle of one kernel library, built if needed, with its
+    entry point's signature declared."""
     if name not in _libs:
         lib = ctypes.CDLL(str(build(name)))
         lib.ekaid_error_string.argtypes = [ctypes.c_int]
         lib.ekaid_error_string.restype = ctypes.c_char_p
+        fn, argtypes = ENTRY[name]
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
         _libs[name] = lib
     return _libs[name]
 

@@ -216,10 +216,6 @@ def _launch(w, cfg, policy, fused, feats, phase_ns):
             len(ptrs), len(dims)):
         raise RuntimeError("greedy_decode: the library's argument layout "
                            "differs from this wrapper's; rebuild it")
-    lib.ekaid_greedy_decode.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p]
-    lib.ekaid_greedy_decode.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ekaid_greedy_decode(

@@ -7,6 +7,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parent.parent
 
 _PROBE = r"""
@@ -22,19 +24,36 @@ import torch, statistics, subprocess, threading, argparse
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "ekaid_tpu"))
-print(json.dumps({"modules": names, "loaded": loaded}))
+host = sorted(m for m in sys.modules
+              if m.split(".")[0] in ("h5py", "PIL", "pandas"))
+print(json.dumps({"modules": names, "loaded": loaded, "host": host}))
 """
 
 
-def test_port_imports_no_jax_and_no_reference_package():
+@pytest.fixture(scope="module")
+def probe():
     proc = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT)],
                           capture_output=True, text=True, timeout=120,
                           cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
-    rec = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "ekaid_torch.models.greedy_decode" in rec["modules"]
-    assert "ekaid_torch.serving.engine" in rec["modules"]
-    assert rec["loaded"] == []
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_port_imports_no_jax_and_no_reference_package(probe):
+    for name in ("models.greedy_decode", "serving.engine",
+                 "data.knowledge", "models.detector.anchors",
+                 "models.detector.backbone", "models.detector.rpn",
+                 "models.detector.heads", "models.detector.faster_rcnn",
+                 "ops.nms", "ops.roi_align", "ops.roi_kernels",
+                 "utils.platform", "extract.pipeline", "extract.runner"):
+        assert f"ekaid_torch.{name}" in probe["modules"], name
+    assert probe["loaded"] == []
+
+
+def test_port_imports_no_optional_host_packages(probe):
+    """h5py (the graph file), PIL (PNG input) and pandas (the CheXpert
+    CSV) load only when used: the card's machine has none of them."""
+    assert probe["host"] == []
 
 
 def test_port_sources_name_no_reference_import():
