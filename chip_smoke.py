@@ -35,7 +35,21 @@ Phases, each fatal on failure:
      the launch on f32 maps) beside their plain versions and their
      bounds from the map positions these ROIs read, extraction images/s
      end to end (host clock, records fetched), backbone ms per batch
-     and a per-stage breakdown.
+     and a per-stage breakdown;
+  9. greedy NMS: the kernel K4 against its plain version and the
+     blocked NMS (`ops/nms.py::nms`) at f32, selections equal in order,
+     at the bench geometry (8 images x 1000 boxes, 100 slots, IoU 0.5),
+     on a hard set (ties, duplicate, zero-area and inverted boxes,
+     padding rows, an image with nothing live, more slots than live
+     rows, R not a multiple of 32, B=1) and at the extraction geometry
+     (the level-offset proposals that `generate_proposals` hands to
+     `batched_nms` on a flagship batch: 4,768 rows an image, IoU 0.7,
+     1000 slots); then the NMS A/B entry point
+     (`ekaid_torch.scripts.bench_nms`) through its `main`, where K4
+     must launch once a call; then times at both geometries (K4's
+     launch alone by CUDA events and by torch.profiler, the plain
+     version, the blocked NMS with its host reads) beside K4's bound
+     and its serial depth.
 Prints one `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}, after a `record:` line with every number
 as JSON. Without a CUDA device, or outside the repository, it exits
@@ -69,6 +83,10 @@ ROI_F32_GATE = 1e-5                # K2/K3 vs plain, f32 max abs error
 EXTRACT_BATCHES = 3
 # ROIs whose long side takes the level bump (on a 1024^2 image)
 ELONGATED_ROIS = ((0.0, 300.0, 1000.0, 350.0), (100.0, 0.0, 160.0, 900.0))
+# K4's IoU pass, f32 operations per live row and step: iw and ih (min,
+# max, subtract, clamp each), the product, the union (add, subtract),
+# the quotient, the threshold test and the arg-max comparison
+NMS_OPS_PER_ROW = 14
 
 
 def log(msg: str) -> None:
@@ -463,6 +481,220 @@ def extraction(rec: dict, cfg=None, device: str = "cuda") -> list:
     return entries
 
 
+def nms_same(got, want, what: str) -> None:
+    """Equal valid flags, and equal indices under them, in order."""
+    import torch
+    (gi, gv), (wi, wv) = got, want
+    if not torch.equal(gv, wv):
+        raise AssertionError(f"{what}: valid differs in "
+                             f"{(gv != wv).sum().item()} slots")
+    differ = torch.where(gv, gi, -1) != torch.where(wv, wi, -1)
+    if differ.any():
+        raise AssertionError(f"{what}: indices differ in "
+                             f"{differ.sum().item()} valid slots")
+
+
+def nms_hard_set():
+    """(name, boxes [B, R, 4], scores [B, R], iou, max_out) cases, numpy
+    f32, R = 77 (not a multiple of 32)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 9)
+    b, r = 6, 77
+    c = rng.uniform(100, 400, (b, r, 2))
+    s = rng.uniform(10, 150, (b, r, 2))
+    boxes = np.concatenate([c - s / 2, c + s / 2], -1).astype(np.float32)
+    scores = rng.uniform(0, 1, (b, r)).astype(np.float32)
+    scores[0] = rng.integers(1, 4, r) / 3                   # ties
+    boxes[1, r // 2:] = boxes[1, :r - r // 2]               # duplicates
+    scores[1] = rng.integers(1, 3, r) / 2
+    boxes[2, ::3, 2] = boxes[2, ::3, 0]                     # zero area
+    boxes[2, 1::3] = boxes[2, 1::3][:, [2, 3, 0, 1]]        # inverted
+    scores[3, r // 2:] = -1e9                               # padding rows
+    scores[3, :2] = (-5e8, -4.9e8)                          # dead, live
+    scores[4] = -1e9                                        # nothing live
+    return [("hard set", boxes, scores, 0.5, 60),           # 60 > live rows
+            ("hard set IoU 0.7", boxes, scores, 0.7, 60),
+            ("hard set B=1", boxes[5:], scores[5:], 0.5, 100)]
+
+
+def proposal_nms_inputs(cfg, dev):
+    """The (boxes, scores, iou, max_out) that `generate_proposals` hands
+    to the blocked NMS through `batched_nms` (level offsets added) on
+    one flagship batch: the anatomy detector with random weights from
+    the seed, synthetic uint8 images. Checks R against the config."""
+    import torch
+    from ekaid_torch.extract import runner
+    from ekaid_torch.models.detector.anchors import pyramid_anchors
+    from ekaid_torch.ops import nms as nms_ops
+
+    det = cfg.detector
+    ana, _ = runner.build_detectors(
+        cfg, gen=torch.Generator().manual_seed(SEED), device=dev)
+    images = next(runner.synthetic_batches(
+        det.extract_batch_size, det.image_size, det.extract_batch_size,
+        dtype="uint8"))
+    seen, orig = [], nms_ops.nms
+
+    def capture(boxes, scores, iou_thresh, max_out,
+                score_thresh=float("-inf"), **kw):
+        seen.append((boxes, scores, iou_thresh, max_out, score_thresh, kw))
+        return orig(boxes, scores, iou_thresh, max_out, score_thresh, **kw)
+
+    nms_ops.nms = capture
+    try:
+        with torch.no_grad():
+            ana.proposals(ana.features(runner.preprocess(images, det, dev)))
+    finally:
+        nms_ops.nms = orig
+    (boxes, scores, iou, max_out, score_thresh, kw), = seen
+    if score_thresh != float("-inf") or kw:
+        raise AssertionError(f"proposal NMS takes score_thresh "
+                             f"{score_thresh}, {kw}; K4 has neither")
+    want_r = sum(min(det.pre_nms_topk, len(a))
+                 for a in pyramid_anchors(det.image_size))
+    if scores.shape != (det.extract_batch_size, want_r):
+        raise AssertionError(f"proposal NMS on {tuple(scores.shape)}, "
+                             f"expected ({det.extract_batch_size}, {want_r})")
+    return (boxes.float().contiguous(), scores.float().contiguous(), iou,
+            max_out)
+
+
+def nms_bound(b: int, r: int, max_out: int, live_rows: int) -> dict:
+    """K4's least time: the boxes and scores read once and the outputs
+    written once, against the IoU pass over the rows still live at each
+    step (`live_rows`, summed over the steps and images; dead rows need
+    no IoU)."""
+    nbytes = b * r * (16 + 4) + b * max_out * (4 + 1)
+    ops = float(NMS_OPS_PER_ROW) * live_rows
+    ops_ms = ops / PEAK_OPS["float32"] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "mflop": ops / 1e6, "kbytes": nbytes / 1e3}
+
+
+def nms_phase(rec: dict, cfg, device: str = "cuda") -> dict:
+    """Phase 9: K4 against its plain version and the blocked NMS, the
+    NMS A/B entry point, and the times. Returns K4's kernels-line
+    entry."""
+    import torch
+    from ekaid_torch.models.greedy_decode import greedy_decode
+    from ekaid_torch.ops import nms as nms_ops
+    from ekaid_torch.ops import nms_kernel as nk
+    from ekaid_torch.ops import roi_kernels as rk
+    from ekaid_torch.scripts import bench_nms
+
+    dev = torch.device(device)
+    T = lambda x: torch.as_tensor(x, device=dev)              # noqa: E731
+    bench = dict(batch=8, rois=1000, max_out=100, iou=0.5)
+    bb, bs = bench_nms.make_inputs(bench["batch"], bench["rois"], SEED)
+    geoms = {"bench": (T(bb), T(bs), bench["iou"], bench["max_out"]),
+             "extraction": proposal_nms_inputs(cfg, dev)}
+    cases = [("bench geometry", *geoms["bench"])]
+    cases += [(n, T(b), T(s), iou, m) for n, b, s, iou, m in nms_hard_set()]
+    # the most rows the kernel's shared memory takes (all of it)
+    mb, ms = bench_nms.make_inputs(2, nk.MAX_ROWS, SEED + 1)
+    cases.append((f"R={nk.MAX_ROWS}", T(mb), T(ms), 0.5, 50))
+    cases.append(("extraction geometry", *geoms["extraction"]))
+
+    # ---- 9a. K4 against its plain version and the blocked NMS ------------
+    r9 = rec["nms"] = {"cases": {}}
+    log("[9] K4 vs plain vs blocked NMS, f32, selections equal in order")
+    for name, boxes, scores, iou, max_out in cases:
+        got = nk.nms_kernel(boxes, scores, iou, max_out)
+        live = torch.zeros(scores.shape[0], dtype=torch.int64, device=dev)
+        plain = nk.nms_kernel_plain(boxes, scores, iou, max_out,
+                                    live_rows=live)
+        blocked = nms_ops.nms(boxes, scores, iou, max_out)
+        torch.cuda.synchronize()
+        nms_same(got, plain, f"{name}: K4 vs plain")
+        nms_same(got, blocked, f"{name}: K4 vs blocked nms")
+        r9["cases"][name] = c = {
+            "shape": list(scores.shape), "iou": iou, "max_out": max_out,
+            "picks": got[1].sum(-1).tolist(), "live_rows": live.tolist()}
+        log(f"  {name}: {tuple(scores.shape)} IoU {iou} max_out {max_out}:"
+            f" equal; picks per image {c['picks']}; live rows over the "
+            f"steps {sum(c['live_rows'])}")
+    hard = r9["cases"]["hard set"]["picks"]
+    if hard[3] > 37 or hard[4] != 0:
+        raise AssertionError(f"hard set picks {hard}: the padded image has "
+                             "37 live rows, the dead one none")
+
+    # ---- 9b. the NMS A/B entry point -------------------------------------
+    counters = (nk.nms_kernel, greedy_decode, rk.multilevel_roi_align_canvas,
+                rk.multilevel_roi_align_pallas)
+    for cnt in counters:
+        cnt.launches = 0
+    res = bench_nms.main(["--iters", "20", "--device", device])
+    torch.cuda.synchronize()
+    counts = [cnt.launches for cnt in counters]
+    log(f"  bench_nms.main: {len(res['lines'])} impls, agreement "
+        f"{res['kept_set_agreement']}, launches K4 {counts[0]} (calls "
+        f"{res['k4_calls']}), K1/K2/K3 {counts[1:]}")
+    if counts != [res["k4_calls"], 0, 0, 0] or (
+            device == "cuda" and counts[0] < 1):
+        raise AssertionError(f"launches {counts}: K4 must launch once per "
+                             f"call ({res['k4_calls']}) and nothing else")
+    r9["bench_nms"] = res["lines"]
+    r9["launches"] = counts[0]
+
+    # ---- 9c. times ---------------------------------------------------------
+    for g, (boxes, scores, iou, max_out) in geoms.items():
+        n, r = scores.shape
+        idx = torch.empty(n, max_out, dtype=torch.int32, device=dev)
+        valid = torch.empty(n, max_out, dtype=torch.bool, device=dev)
+
+        def alone():
+            nk._kernel_launch(boxes, scores, iou, idx, valid)
+
+        reads = nms_ops._survivor_mask.host_reads
+        nms_ops.nms(boxes, scores, iou, max_out)
+        reads = nms_ops._survivor_mask.host_reads - reads
+        runs = {"kernel": [], "blocked": []}
+        for which in ("kernel", "blocked", "blocked", "kernel"):
+            runs[which].append(cuda_ms(
+                alone if which == "kernel" else
+                lambda: nms_ops.nms(boxes, scores, iou, max_out),
+                20 if which == "kernel" else 5))
+        c = r9["cases"][f"{g} geometry"]
+        picks, steps = sum(c["picks"]), max(c["picks"])
+        live = sum(c["live_rows"])
+        t = r9[g] = dict(
+            nms_bound(n, r, max_out, live),
+            ms=statistics.mean(runs["kernel"]),
+            wrapper_ms=cuda_ms(lambda: nk.nms_kernel(boxes, scores, iou,
+                                                     max_out), 20),
+            profiler_kernel_ms=profiler_kernel_ms(alone, "greedy_nms_kernel"),
+            blocked_ms=statistics.mean(runs["blocked"]),
+            blocked_host_reads=reads, serial_steps=steps, picks=picks,
+            live_rows=live, runs=runs,
+            # the plain version at max_out=1000 is a 1000-step loop
+            plain_ms=cuda_ms(lambda: nk.nms_kernel_plain(
+                boxes, scores, iou, max_out), 2 if g == "bench" else 1))
+        t["x_bound"] = t["ms"] / t["bound_ms"]
+        log(f"    K4 {g} {tuple(scores.shape)}, IoU {iou}, {max_out} slots: "
+            f"launch alone {t['ms']:.4f} ms (runs "
+            f"{['%.4f' % v for v in runs['kernel']]}; profiler's device time "
+            f"{t['profiler_kernel_ms']}), wrapper {t['wrapper_ms']:.4f} ms; "
+            f"{steps} serial steps, {picks} picks, {live} live rows over the "
+            f"steps ({live / (r * max(picks, 1)):.3f} of R at every pick); "
+            f"bound {t['bound_ms']:.5f}"
+            f" ms ({t['bound_by']}: {t['mflop']:.1f} MFLOP at 67 TFLOP/s, "
+            f"{t['kbytes']:.0f} KB at 3.35 TB/s), {t['x_bound']:.0f}x; "
+            f"plain {t['plain_ms']:.1f} ms; blocked nms {t['blocked_ms']:.3f}"
+            f" ms with {reads} host reads a call")
+    b = r9["bench"]
+    # the gate is exact (nms_same): this entry exists only when every
+    # selection above was equal, so the index error is 0
+    return {"name": "greedy_nms", "route": "cuda",
+            "source": "ekaid_torch/csrc/nms.cu",
+            "replaces": "ekaid_tpu/ops/pallas_nms.py:38",
+            "launches": r9["launches"], "max_abs_err": 0,
+            "ms": b["ms"], "plain_ms": b["plain_ms"],
+            "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": None}
+
+
 def main() -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -697,6 +929,7 @@ def main() -> dict:
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": None}]
     kernels_line += extraction(rec)
+    kernels_line.append(nms_phase(rec, cfg))
     kline = {"kernels": kernels_line}
     log("record: " + json.dumps(rec))
     print(json.dumps(kline))

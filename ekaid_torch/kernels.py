@@ -26,7 +26,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build" / "ekaid_torch"
 SOURCES = {"greedy_decode": CSRC / "greedy_decode.cu",
-           "roi_align": CSRC / "roi_align.cu"}
+           "roi_align": CSRC / "roi_align.cu",
+           "nms": CSRC / "nms.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -39,6 +40,9 @@ ENTRY = {
     # out_size, sampling ratio, stream
     "roi_align": ("ekaid_roi_align", [_I, _I, _P, _P, _I, _P, _P, _P,
                                       _I, _I, _I, _I, _P]),
+    # boxes, scores, iou threshold, indices, valid, images, rows, slots,
+    # stream
+    "nms": ("ekaid_nms", [_P, _P, ctypes.c_float, _P, _P, _I, _I, _I, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

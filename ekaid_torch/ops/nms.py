@@ -78,7 +78,8 @@ def _survivor_mask(boxes: torch.Tensor, scores: torch.Tensor,
     point; the live members then suppress every later box at once. The
     fixed point runs for the whole batch until no member changes (one
     host sync per iteration): a member that has converged stays put, so
-    the result equals a loop per member."""
+    the result equals a loop per member. Each host read is counted in
+    `_survivor_mask.host_reads`."""
     lead, r = scores.shape[:-1], scores.shape[-1]
     boxes = boxes.reshape(-1, r, 4)
     scores = scores.reshape(-1, r)
@@ -106,6 +107,7 @@ def _survivor_mask(boxes: torch.Tensor, scores: torch.Tensor,
         while True:
             new = blk_live & ~(sup_map & alive[:, :, None]).any(dim=1)
             changed = bool((new != alive).any())
+            _survivor_mask.host_reads += 1
             alive = new
             if not changed:
                 break
@@ -115,6 +117,9 @@ def _survivor_mask(boxes: torch.Tensor, scores: torch.Tensor,
         live[:, start:start + b] = alive
     mask = torch.zeros_like(live[:, :r]).scatter_(1, order, live[:, :r])
     return mask.reshape(*lead, r)
+
+
+_survivor_mask.host_reads = 0
 
 
 def _pad_last(x: torch.Tensor, n: int) -> torch.Tensor:

@@ -45,7 +45,8 @@ def test_port_imports_no_jax_and_no_reference_package(probe):
                  "models.detector.backbone", "models.detector.rpn",
                  "models.detector.heads", "models.detector.faster_rcnn",
                  "ops.nms", "ops.roi_align", "ops.roi_kernels",
-                 "utils.platform", "extract.pipeline", "extract.runner"):
+                 "utils.platform", "extract.pipeline", "extract.runner",
+                 "ops.nms_kernel", "scripts.bench_nms"):
         assert f"ekaid_torch.{name}" in probe["modules"], name
     assert probe["loaded"] == []
 
