@@ -10,8 +10,14 @@ Phases, each fatal on failure:
      flagship width (E=D=1024, R=512, W=300, V=148, T=90), random
      weights from a seed, at B=64, 5 and 1 (5 and 1 fill a 16-row tile
      only partly; 1 is the engine's batch): f32 token-exact (plain,
-     forced early exit, decoding constraint), then bf16 (finite, step 0
-     equal tokens and a small logprob gap; agreement measured);
+     forced early exit, decoding constraint), then bf16 at B=64, 5, 1
+     and 80 (two row groups of K1's units, the second partial): finite,
+     step-0 tokens equal, a small step-0 logprob gap, agreement
+     measured; two bf16 decodes at B=64 bit-equal (the split-K sums
+     run in a fixed order); one-step decodes (`scratch=True`) whose
+     per-phase intermediates are held against the plain version's:
+     f32 within 1e-5 of each tensor's largest magnitude, bf16 gaps in
+     ulps recorded, zx and h_mod within 2 ulps;
   4. the main path: an `EkaidModel` at flagship width under the bf16
      policy behind the batch-1 `InferenceEngine`, answering questions
      over the synthetic pair store, then one batch-64 decode; the
@@ -79,6 +85,12 @@ F32_GATES = {"logprobs": 1e-4, "module_weights": 1e-5}
 # be equal and its logprobs close
 BF16_STEP0_GAP = 1e-3
 BATCHES = (64, 5, 1)
+BF16_GROUPS_B = 80                 # two row groups of K1's units
+BF16_BATCHES = BATCHES + (BF16_GROUPS_B,)
+# one-step intermediates: f32 relative to the plain tensor's largest
+# magnitude; bf16 zx and h_mod, whose step-0 inputs are equal in both
+ONE_STEP_F32 = 1e-5
+BF16_STEP0_ULPS = 2
 ROI_F32_GATE = 1e-5                # K2/K3 vs plain, f32 max abs error
 EXTRACT_BATCHES = 3
 # ROIs whose long side takes the level bump (on a 1024^2 image)
@@ -695,44 +707,66 @@ def nms_phase(rec: dict, cfg, device: str = "cuda") -> dict:
             "bound_by": b["bound_by"], "library_ms": None}
 
 
-def main() -> dict:
+def bf16_gap_ulps(ref, out) -> dict:
+    """The largest gap between two bf16 tensors in bf16 ulps (of the
+    larger magnitude) and the share of bit-equal elements."""
     import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device")
-    if not (ROOT / "ekaid_torch" / "csrc").is_dir():
-        raise SystemExit("chip_smoke: run from a checkout of the repository")
-    sys.path.insert(0, str(ROOT))
-    import numpy as np
-    from ekaid_torch import kernels
-    from ekaid_torch.config import load_config
+    r, o = ref.float(), out.float()
+    gap = (r - o).abs()
+    ulps = gap / bf16_ulp(torch.maximum(r.abs(), o.abs()))
+    return {"max_ulps": ulps.max().item(),
+            "equal_share": (gap == 0).float().mean().item()}
+
+
+def one_step(rec: dict, w32, w16, sp, fx32, fx16) -> None:
+    """The step-0 intermediates of one-step decodes (`scratch=True`)
+    against the plain version's, at B=64: f32 within ONE_STEP_F32 x the
+    plain tensor's largest magnitude; bf16 gaps in ulps and bit-equal
+    shares recorded, zx and h_mod (inputs equal at step 0) gated at
+    BF16_STEP0_ULPS."""
+    import torch
+    from ekaid_torch.models.greedy_decode import (SCRATCH_NAMES,
+                                                  greedy_decode,
+                                                  greedy_decode_plain)
+    from ekaid_torch.utils.dtypes import BF16, F32
+    sp1 = sp.replace(seq_length=1)
+    r = rec["one_step"] = {"f32": {}, "bf16": {}}
+    for pol, w, (f, x) in ((F32, w32, fx32), (BF16, w16, fx16)):
+        ref = greedy_decode_plain(w, sp1, pol, f, x, scratch=True)
+        out = greedy_decode(w, sp1, pol, f, x, scratch=True)
+        torch.cuda.synchronize()
+        for k in SCRATCH_NAMES:
+            if pol is F32:
+                scale = ref[k].abs().max().item()
+                err = (ref[k] - out[k]).abs().max().item()
+                r["f32"][k] = err / max(scale, 1e-30)
+                if err > ONE_STEP_F32 * scale:
+                    raise AssertionError(f"one step f32 {k}: max abs err "
+                                         f"{err} > {ONE_STEP_F32} x {scale}")
+            else:
+                g = r["bf16"][k] = bf16_gap_ulps(ref[k], out[k])
+                if k in ("zx", "h_mod") and g["max_ulps"] > BF16_STEP0_ULPS:
+                    raise AssertionError(f"one step bf16 {k}: "
+                                         f"{g['max_ulps']} ulps > "
+                                         f"{BF16_STEP0_ULPS}")
+    log("  one step, B=64, f32 max err / max |plain|: " + ", ".join(
+        f"{k} {v:.2g}" for k, v in r["f32"].items()))
+    log("  one step, B=64, bf16 max ulps (bit-equal share): " + ", ".join(
+        f"{k} {v['max_ulps']:.3g} ({v['equal_share']:.4f})"
+        for k, v in r["bf16"].items()) + f"; zx, h_mod gated at "
+        f"{BF16_STEP0_ULPS}")
+
+
+def k1_phase(rec: dict, cfg):
+    """Phase 3: K1 against its plain version at flagship width. Returns
+    the bf16 model, the B=64 batch, its bf16 decode inputs, weights and
+    kernel decode, for the main path."""
+    import torch
     from ekaid_torch.data.synthetic import synthetic_batch
     from ekaid_torch.models.ekaid import EkaidModel
-    from ekaid_torch.models.greedy_decode import (greedy_decode,
-                                                  greedy_decode_plain)
-    from ekaid_torch.serving.engine import InferenceEngine
+    from ekaid_torch.models.greedy_decode import (
+        PRODUCT_WEIGHTS, greedy_decode, greedy_decode_plain)
     from ekaid_torch.utils.dtypes import BF16, F32
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    rec = {}
-
-    # ---- 1. the card ---------------------------------------------------
-    card = card_line()
-    rec["card"] = card
-    rec["device"] = torch.cuda.get_device_name(0)
-    log(f"[1] card: {card} | torch {torch.__version__} cuda "
-        f"{torch.version.cuda} | {rec['device']}")
-
-    # ---- 2. build --------------------------------------------------------
-    rec["build_s"] = kernels.build_all()
-    log(f"[2] built {sorted(kernels.SOURCES)} in {rec['build_s']:.1f} s")
-    for name in kernels.SOURCES:
-        for line in (kernels.BUILD / f"{name}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {line.strip()}")
-
-    # ---- 3. K1 against its plain version, flagship width -----------------
-    cfg = load_config()
     sp = cfg.speaker
     B = BATCHES[0]
     batch = synthetic_batch(cfg, B, seed=SEED + 1)
@@ -772,9 +806,14 @@ def main() -> dict:
     fused16, feats16 = m16.speaker._fused(
         enc16["feat_bef"], enc16["feat_diff"], enc16["feat_aft"])
     w16 = m16.speaker.decode_weights()
+    # a batch of 80: two row groups, the second partial
+    e80 = m16.encode(synthetic_batch(cfg, BF16_GROUPS_B, seed=SEED + 2))
+    f80, x80 = m16.speaker._fused(e80["feat_bef"], e80["feat_diff"],
+                                  e80["feat_aft"])
     rec["bf16"] = {}
-    for b in BATCHES:
-        f, x = fused16[:b].contiguous(), feats16[:b].contiguous()
+    for b in BF16_BATCHES:
+        f, x = ((f80, x80) if b == BF16_GROUPS_B else
+                (fused16[:b].contiguous(), feats16[:b].contiguous()))
         ref16 = greedy_decode_plain(w16, sp, BF16, f, x)
         out = greedy_decode(w16, sp, BF16, f, x)
         if b == B:
@@ -784,6 +823,81 @@ def main() -> dict:
             f"logprob gap {r['step0_lp_gap']:.3g}, steps "
             f"{steps_run(out['seq'])} (hard checks: finite, step-0 tokens "
             f"equal, step-0 gap <= {BF16_STEP0_GAP})")
+    # other parameter sets, each made and dropped in turn, decode with
+    # their own packed weights: f32 as its plain version does, bf16 bit
+    # for bit as a fresh copy of the set (packed anew)
+    products = {n for names in PRODUCT_WEIGHTS.values() for n in names}
+    for shift in (1, 2):
+        for pol, w0, f, x in ((F32, w32, fused, feats),
+                              (BF16, w16, fused16, feats16)):
+            w_other = {k: v.roll(shift, 0).contiguous() if k in products
+                       else v for k, v in w0.items()}
+            what = (f"{'f32' if pol is F32 else 'bf16'} B={B}, parameter "
+                    f"set {shift + 1}")
+            out = greedy_decode(w_other, sp, pol, f, x)
+            if pol is F32:
+                compare(greedy_decode_plain(w_other, sp, F32, f, x), out,
+                        what)
+                continue
+            fresh = greedy_decode({k: v.clone() for k, v in w_other.items()},
+                                  sp, BF16, f, x)
+            torch.cuda.synchronize()
+            for k in ("seq", "logprobs", "module_weights"):
+                if not torch.equal(out[k], fresh[k]):
+                    raise AssertionError(f"{what}: differs in {k} from a "
+                                         "fresh copy of the set")
+            log(f"  {what}: bit-equal to a fresh copy of the set")
+    # the split-K sums run in a fixed order: a second decode is bit-equal
+    again = greedy_decode(w16, sp, BF16, fused16, feats16)
+    torch.cuda.synchronize()
+    for k in ("seq", "logprobs", "module_weights"):
+        if not torch.equal(again[k], out16[k]):
+            raise AssertionError(f"bf16 B={B}: a second decode differs in {k}")
+    log(f"  bf16 B={B}: a second decode, after two other parameter sets, "
+        "is bit-equal (seq, logprobs, module_weights)")
+    one_step(rec, w32, w16, sp, (fused, feats), (fused16, feats16))
+    return m16, batch, fused16, feats16, w16, out16
+
+
+def main() -> dict:
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    if not (ROOT / "ekaid_torch" / "csrc").is_dir():
+        raise SystemExit("chip_smoke: run from a checkout of the repository")
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    from ekaid_torch import kernels
+    from ekaid_torch.config import load_config
+    from ekaid_torch.models.greedy_decode import (greedy_decode,
+                                                  greedy_decode_plain)
+    from ekaid_torch.serving.engine import InferenceEngine
+    from ekaid_torch.utils.dtypes import BF16
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = {}
+
+    # ---- 1. the card ---------------------------------------------------
+    card = card_line()
+    rec["card"] = card
+    rec["device"] = torch.cuda.get_device_name(0)
+    log(f"[1] card: {card} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | {rec['device']}")
+
+    # ---- 2. build --------------------------------------------------------
+    rec["build_s"] = kernels.build_all()
+    log(f"[2] built {sorted(kernels.SOURCES)} in {rec['build_s']:.1f} s")
+    for name in kernels.SOURCES:
+        for line in (kernels.BUILD / f"{name}.log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    {line.strip()}")
+
+    # ---- 3. K1 against its plain version, flagship width -----------------
+    cfg = load_config()
+    sp = cfg.speaker
+    B = BATCHES[0]
+    m16, batch, fused16, feats16, w16, out16 = k1_phase(rec, cfg)
 
     # ---- 4. main path ----------------------------------------------------
     greedy_decode.launches = 0

@@ -22,42 +22,60 @@
 // run in f32 from the rounded inputs, and h, c are rounded back to T.
 // T is float (the exactness gate) or __nv_bfloat16 (serving).
 //
-// Design. One persistent cooperative grid (occupancy x SMs blocks). A
-// step is seven phases separated by grid.sync():
-//   1. step-start products: the module LSTM (both products + gates, in
-//      the epilogue of a tile that holds all four gates of 16 hidden
-//      units), vpos, xt @ wih_x and h_lang @ whh_lang;
+// Loop. One persistent cooperative grid (every block co-resident). A step is
+// seven phases separated by grid.sync():
+//   1. step-start products: the module LSTM (two products, each rounded
+//      on its own, then the gates), vpos, xt @ wih_x and h_lang @ whh_lang;
 //   2. per row: mw, the POS softmax, ppos and att;
 //   3. gate1x;  4. gate2x and gate * att;
 //   5. (gate * att) @ wih_a and the language LSTM;  6. logits;
 //   7. a warp per row: log-softmax, argmax, outputs, and a device-wide
 //      count of unfinished rows that every block reads after the same
 //      grid.sync(), so every block takes the same exit decision.
-// A work unit of the product phases is 16 batch rows x 64 weight
-// columns: the rows' inputs are staged in shared memory as f32, each
-// thread accumulates 2 columns x 16 rows in registers over a slice of K,
-// and the 8 K-slices are summed in a fixed order. States and per-step
-// intermediates live in a global scratch buffer (L2-resident at these
-// sizes) and are read through L2 (__ldcg); h_mod is double-buffered
+// States and per-step intermediates live in global scratch (L2-resident
+// at these sizes) and are read through L2; h_mod is double-buffered
 // because every block reads the old value while others write the new.
 //
-// Bound on an H100 (flagship widths E=D=1024, R=512, W=300, V=148, B=64,
-// bf16): each step multiplies B rows by ~14.6M weight values, ~1.9 GFLOP
-// a step. Read once, the 29.3 MB of bf16 weights take 8.8 us at
-// 3.35 TB/s, so with the weights held in the 50 MB L2 between steps the
-// least time is the tensor-core time of the products (~1.9 us a step at
-// 989 TFLOP/s); streamed from device memory each step it is 8.8 us a
-// step. This first version does the products on the CUDA cores in f32
-// (67 TFLOP/s: ~28 us a step at best) and pays seven grid-wide barriers
-// a step; wgmma, TMA and warp specialisation are later work. Measured
-// on an H100 (chip_smoke.py): ~243 us a step at B=64. The weight
-// stream bounds it, not the arithmetic: a unit has ~16 KB of weight
-// loads in flight per SM, and the four 16-row groups of a 64-row batch
-// each re-read every weight tile. A faster version reads each weight
-// once a step, from units that span all rows (PERF.md).
+// Product phases (1, 3-6). The wrapper's work plan (greedy_decode.py::
+// decode_plan) cuts each into units of up to 64 batch rows (all of a
+// batch of <= 64, so each weight is read once a step) x `nu` weight
+// columns x one K-slice of one product, at least one unit for each SM.
+// A unit stages its rows' inputs in shared memory (bf16 stays bf16, rows
+// past B are zero), streams its weight slab through a 5-stage cp.async
+// ring of 8 KB stages (four ahead: 32 KB in flight where the slab holds
+// that much), and multiplies: bf16 with mma.sync m16n8k16 (A by
+// ldmatrix, B by ldmatrix.trans from the row-major [k][nu] tile), f32
+// with FFMA over the same tiles. The wrapper packs each product weight
+// tile-major ([ntiles][K][nu], padding columns zero) once per parameter
+// set, so a unit's slab is contiguous and every copy a whole, aligned
+// 16-byte chunk. Warps split columns and K, never rows, so a batch of 1
+// wastes no warp on empty rows. Each unit writes its f32 partial to
+// scratch and takes a ticket (an acq_rel atomic) for its (column tile,
+// row group); the last unit brings every slice and its epilogue's
+// operands into shared memory in one copy group, sums the slices in
+// slice order, rounds once and runs the phase's epilogue (bias, relu,
+// sigmoid, the LSTM gates), so results are the same from run to run and
+// the loop keeps its seven barriers. Gate tiles hold the four gates of
+// nu/4 hidden units, so the reducing unit has all of them for the LSTM.
+// bf16 runs two blocks an SM, so that one block's copies overlap the
+// other's dependent loads.
+//
+// What bounds it. The flagship bf16 step (E=D=1024, R=512, W=300,
+// V=148, B=64) multiplies B rows by ~14.6M weight values, ~1.9 GFLOP,
+// ~1.9 us at 989 TFLOP/s; its 29.3 MB of weights take 8.8 us a step from
+// device memory. Neither sets the time: each product phase is a chain of
+// dependent trips to L2 (the unit's copies, its ticket, the reducer's
+// copy group) behind the SM's other copies, plus a grid barrier, and its
+// slowest block is a reducer. The activation rows, re-read by every
+// column tile, move more bytes than the weights in gate1x and gate2x.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, us a
+// step at B=64: module LSTM + vpos + zx + zh 41.45, gate1x 31.99, gate2x
+// 25.12, language LSTM 29.72, logits 19.34, and the per-row phases 2 and
+// 7 16.48 and 6.41; 15.492 ms a 90-step decode (11.360 ms at B=1).
 
 #include <algorithm>
 #include <cmath>
+#include <cstdint>
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -68,11 +86,20 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRB = 16;                      // batch rows per work unit
-constexpr int kTN = 64;                      // weight columns per work unit
-constexpr int kTX = kTN / 2;                 // threads along the columns
-constexpr int kKS = kThreads / kTX;          // K-slices per unit (8)
-constexpr int kGT = kTN / 4;                 // hidden units per gate tile
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowsPerGroup = 64;
+constexpr int kRingStages = 5;               // as greedy_decode.py
+constexpr int kStageBytes = 8192;
+constexpr int kMaxJobs = 4;
+constexpr int kJobInts = 16;
+constexpr int kPhaseInts = 2 + kMaxJobs * kJobInts;
+constexpr int kPhases = 5;                   // product phases in the plan
+
+enum Kind { MOD, VPOS, ZX, ZH, G1, G2, LANG, LOGIT };
+enum JobField {
+  J_KIND, J_NU, J_NTILES, J_KS, J_NPROD, J_K0, J_S0, J_K1, J_S1, J_UNIT,
+  J_NUNITS, J_PART, J_TICKET, J_N, J_GATES, J_NVALID
+};
 
 template <typename T> struct Cvt;
 template <> struct Cvt<float> {
@@ -123,6 +150,54 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// ---- Hopper data movement and tensor-core primitives -------------------
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_u32(dst)), "l"(src));
+}
+// a ticket: releases this block's earlier writes (ordered by the
+// __syncthreads before it) and acquires those of the blocks before it
+__device__ __forceinline__ int ticket_add(int* p) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+               : "=r"(old) : "l"(p) : "memory");
+  return old;
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 template <typename T> struct Args {
   // weights, in the reference kernel's order
   const T *wemb, *wih_mod, *whh_mod, *b_mod, *wfc, *bfc, *wpos1, *bpos1,
@@ -135,8 +210,11 @@ template <typename T> struct Args {
   T *vpos, *zx, *zh, *att, *ppos, *gate_h, *ga;
   float *mw, *logits;                       // [B, 3], [B, V]
   int *tok, *unfin, *counts;                // [B], [B], [T]
+  const int* plan;                          // [5, kPhaseInts]
+  float* part;                              // split-K partials
+  int* tickets;                             // one per (tile, row group)
   unsigned long long* phase_ns;             // [7] or null
-  int B, steps, E, R, D, W, V, P, constraint;
+  int B, steps, E, R, D, W, V, P, constraint, bu_pad, groups, lda;
 };
 
 // One segment of a product's input row: `k` values at p[b * ld], or at
@@ -167,161 +245,581 @@ struct ColMap {
   }
   __device__ bool valid(int j) const { return (j % group) < gvalid; }
 };
-__device__ ColMap contiguous(int tile, int N) {
-  int n0 = tile * kTN;
-  return ColMap{n0, kTN, 0, min(kTN, N - n0)};
-}
-// the four gate columns (i, f, g, o) of hidden units [r0, r0 + kGT)
-__device__ ColMap gates(int tile, int R) {
-  int r0 = tile * kGT;
-  return ColMap{r0, kGT, R, min(kGT, R - r0)};
+
+struct Job {
+  int kind, nu, ntiles, ks, k0, s0, k1, s1, unit, part, ticket, n, gates,
+      nvalid;
+};
+// a job's fields, from the phase's plan in shared memory
+__device__ Job load_job(const int* p) {
+  return Job{p[J_KIND], p[J_NU], p[J_NTILES], p[J_KS], p[J_K0], p[J_S0],
+             p[J_K1], p[J_S1], p[J_UNIT], p[J_PART], p[J_TICKET], p[J_N],
+             p[J_GATES], p[J_NVALID]};
 }
 
-// res[i][j] = round_T(sum_k X[b0 + i][k] * W[k][col(j)]) for kRB rows and
-// kTN tile columns (rows past B and invalid columns give 0).
+// 16-byte chunks: shared-memory tiles are stored in chunks of kCE values,
+// XOR-swizzled so that ldmatrix's eight rows fall in distinct banks.
+template <typename T> struct Tile {
+  static constexpr int kCE = 16 / sizeof(T);
+  // activation rows [bu_pad][lda]: lda / kCE >= 8 chunks a row
+  static __device__ __forceinline__ int a_at(int r, int k, int lda) {
+    return r * lda + (((k / kCE) ^ (r & 7)) * kCE) + (k % kCE);
+  }
+  // weight stage [kc][nu], nch = nu / kCE chunks a row
+  static __device__ __forceinline__ int b_chunk(int k, int c, int nch) {
+    if (nch >= 8) return c ^ (k & 7);
+    const int shift = nch == 4 ? 1 : 2;     // nch is 2 or 4 otherwise
+    return c ^ ((k >> shift) & (nch - 1));
+  }
+};
+
+// Stage rows [0, mt*16) x slice columns [k0, k0 + kpad) of the unit's
+// input. A thread keeps one 16-byte chunk column (its segment and source
+// found once) and walks the rows: cp.async for whole, aligned chunks of
+// one segment (committed with the first weight stage), plain loads for
+// the rest (the embedding gather through relu, ragged ends); rows past
+// nb and columns past k1 are zero. kpad / kCE <= kThreads (ks <= 512).
 template <typename T>
-__device__ void tile_mm(const Input<T>& in, const T* __restrict__ w, int ldn,
-                        ColMap cm, int b0, int B, float* xs, float* red,
-                        float* res) {
-  // stage the rows' inputs transposed, xs[k][i], as f32 (kRB loads in
-  // flight per thread; rows past B are zero)
-  const int nb = min(kRB, B - b0);
-  int K = 0;
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    if (s >= in.n) break;
-    const Seg<T> sg = in.s[s];
-    const T* row[kRB];
-#pragma unroll
-    for (int i = 0; i < kRB; ++i)
-      row[i] = i < nb ? sg.p + (size_t)(sg.rows ? __ldcg(sg.rows + b0 + i)
-                                                : b0 + i) * sg.ld
-                      : nullptr;
-    for (int k = threadIdx.x; k < sg.k; k += kThreads) {
-      float v[kRB];
-#pragma unroll
-      for (int i = 0; i < kRB; ++i) {
-        v[i] = row[i] ? (sg.rows ? ldw(row[i] + k) : lda(row[i] + k)) : 0.f;
-        if (sg.relu) v[i] = fmaxf(v[i], 0.f);
+__device__ void stage_a(const Input<T>& in, int b0, int nb, int mt, int k0,
+                        int k1, int kpad, T* as, int ldas, const int* rows) {
+  constexpr int CE = Tile<T>::kCE;
+  const int cpr = kpad / CE, rstep = kThreads / cpr;
+  const int c = threadIdx.x % cpr, r0 = threadIdx.x / cpr;
+  if (r0 >= rstep) return;
+  const int k = k0 + c * CE;
+  int s = 0, off = k;
+  while (s + 1 < in.n && off >= in.s[s].k) { off -= in.s[s].k; ++s; }
+  const Seg<T> sg = in.s[s];
+  // whole chunks of one segment go by cp.async: 16-byte aligned, or (an
+  // embedding row) 8-byte aligned as two halves
+  const bool whole = k + CE <= k1 && off + CE <= sg.k;
+  const bool a16 = whole && sg.ld % CE == 0 &&
+                   (reinterpret_cast<uintptr_t>(sg.p + off) & 15) == 0;
+  const bool a8 = whole && (sg.ld * sizeof(T)) % 8 == 0 &&
+                  (reinterpret_cast<uintptr_t>(sg.p + off) & 7) == 0;
+  for (int r = r0; r < mt * 16; r += rstep) {
+    T* dst = as + Tile<T>::a_at(r, c * CE, ldas);
+    if (r < nb && (a16 || a8)) {
+      const T* src = sg.p + (size_t)(sg.rows ? rows[r] : b0 + r) * sg.ld + off;
+      if (a16 && !sg.rows) {
+        cp_async16(dst, src);
+      } else {
+        cp_async8(dst, src);
+        cp_async8(dst + CE / 2, src + CE / 2);
       }
-      float4* dst = reinterpret_cast<float4*>(xs + (K + k) * kRB);
-#pragma unroll
-      for (int q = 0; q < kRB / 4; ++q)
-        dst[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+      continue;
     }
-    K += sg.k;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < nb && k < k1) {
+      T* e = reinterpret_cast<T*>(&v);
+      const int b = b0 + r;
+#pragma unroll
+      for (int q = 0; q < CE; ++q) {
+        int kk = k + q, ss = 0, oo = kk;
+        if (kk >= k1) { e[q] = Cvt<T>::to(0.f); continue; }
+        while (ss + 1 < in.n && oo >= in.s[ss].k) { oo -= in.s[ss].k; ++ss; }
+        const Seg<T>& g = in.s[ss];
+        const T* rw = g.p + (size_t)(g.rows ? rows[r] : b) * g.ld;
+        e[q] = Cvt<T>::to(g.rows ? ldw(rw + oo) : lda(rw + oo));
+      }
+    }
+    *reinterpret_cast<uint4*>(dst) = v;
   }
-  __syncthreads();
+}
 
-  // each thread: 2 columns x kRB rows over the K-slice ty, ty + kKS, ...
-  constexpr int kU = 8;                      // weight loads in flight
-  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX, j0 = 2 * tx;
-  const bool v0 = cm.valid(j0), v1 = cm.valid(j0 + 1);
-  const T* w0 = w + cm.col(j0);
-  const T* w1 = w + cm.col(j0 + 1);
-  float acc0[kRB], acc1[kRB];
-#pragma unroll
-  for (int i = 0; i < kRB; ++i) acc0[i] = acc1[i] = 0.f;
-  auto fma_row = [&](int k, float a, float c) {
-    const float4* xv = reinterpret_cast<const float4*>(xs + k * kRB);
-#pragma unroll
-    for (int q = 0; q < kRB / 4; ++q) {
-      const float4 x = xv[q];
-      acc0[4 * q + 0] = fmaf(x.x, a, acc0[4 * q + 0]);
-      acc0[4 * q + 1] = fmaf(x.y, a, acc0[4 * q + 1]);
-      acc0[4 * q + 2] = fmaf(x.z, a, acc0[4 * q + 2]);
-      acc0[4 * q + 3] = fmaf(x.w, a, acc0[4 * q + 3]);
-      acc1[4 * q + 0] = fmaf(x.x, c, acc1[4 * q + 0]);
-      acc1[4 * q + 1] = fmaf(x.y, c, acc1[4 * q + 1]);
-      acc1[4 * q + 2] = fmaf(x.z, c, acc1[4 * q + 2]);
-      acc1[4 * q + 3] = fmaf(x.w, c, acc1[4 * q + 3]);
-    }
-  };
-  auto load_chunk = [&](int k, float (&a)[kU], float (&c)[kU]) {
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      a[u] = v0 ? ldw(w0 + (size_t)(k + u * kKS) * ldn) : 0.f;
-      c[u] = v1 ? ldw(w1 + (size_t)(k + u * kKS) * ldn) : 0.f;
-    }
-  };
-  int k = ty;
-  if (k + (kU - 1) * kKS < K) {
-    // the next chunk's weights load while this chunk is multiplied
-    float a[kU], c[kU];
-    load_chunk(k, a, c);
-    while (true) {
-      const int kn = k + kU * kKS;
-      const bool more = kn + (kU - 1) * kKS < K;
-      float an[kU], cn[kU];
-      if (more) load_chunk(kn, an, cn);
-#pragma unroll
-      for (int u = 0; u < kU; ++u) fma_row(k + u * kKS, a[u], c[u]);
-      k = kn;
-      if (!more) break;
-#pragma unroll
-      for (int u = 0; u < kU; ++u) { a[u] = an[u]; c[u] = cn[u]; }
+// One thread's share of a weight ring stage: one 16-byte chunk column of
+// the tile's packed slab (rows of nu values, contiguous), every rstep-th
+// row, by cp.async; rows past the slice up to the next multiple of 16
+// are zero.
+template <typename T> struct StageCopy {
+  static constexpr int CE = Tile<T>::kCE;
+  const T* src;            // the tile's row 0, at this thread's chunk
+  int c, r0, rstep, nch, nu;
+  __device__ StageCopy(const T* tile, int nu_) : nu(nu_) {
+    nch = nu / CE;
+    rstep = kThreads / nch;
+    c = threadIdx.x % nch;
+    r0 = threadIdx.x / nch;
+    src = tile + c * CE;
+  }
+  // rows [kq0, kq1) into `stage`
+  __device__ void issue(int kq0, int kq1, T* stage) const {
+    const int rows = (kq1 - kq0 + 15) / 16 * 16;
+    for (int r = r0; r < rows; r += rstep) {
+      T* dst = stage + r * nu + Tile<T>::b_chunk(r, c, nch) * CE;
+      if (kq0 + r < kq1)
+        cp_async16(dst, src + (size_t)(kq0 + r) * nu);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
     }
   }
-  for (; k < K; k += kKS)
-    fma_row(k, v0 ? ldw(w0 + (size_t)k * ldn) : 0.f,
-            v1 ? ldw(w1 + (size_t)k * ldn) : 0.f);
+};
+
+// Shared memory of a product unit.
+template <typename T> struct Smem {
+  T* as;          // [bu_pad][lda] input rows
+  T* ring;        // kRingStages x kStageBytes
+  float* red;     // [groups along K][bu_pad][nu], over the ring
+};
+
+// bf16: warps split nu into 16-column pairs of n8 tiles and K into
+// k16 steps; each warp covers all mt row tiles of its columns.
+__device__ __forceinline__ void chunk_mma(const Smem<__nv_bfloat16>& sm,
+                                          const __nv_bfloat16* stage, int nu,
+                                          int mt, int ka0, int nrows,
+                                          int ldas, float (&acc)[4][2][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int np = nu / 16, wn = warp % np, wk = warp / np, nwk = kWarps / np;
+  const int nch = nu / 8, steps = (nrows + 15) / 16;
+  for (int s = wk; s < steps; s += nwk) {
+    const int kk = s * 16;
+    const int br = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+    unsigned b[4];
+    ldsm_x4_t(b, stage + br * nu +
+                     Tile<__nv_bfloat16>::b_chunk(br, wn * 2 + (lane >> 4), nch) * 8);
 #pragma unroll
-  for (int i = 0; i < kRB; ++i) {
-    red[(ty * kRB + i) * kTN + j0] = acc0[i];
-    red[(ty * kRB + i) * kTN + j0 + 1] = acc1[i];
+    for (int m = 0; m < 4; ++m) {
+      if (m >= mt) break;
+      const int ar = m * 16 + (lane & 15);
+      unsigned a[4];
+      ldsm_x4(a, sm.as + Tile<__nv_bfloat16>::a_at(ar, ka0 + kk + (lane >> 4) * 8,
+                                                     ldas));
+      mma_bf16(acc[m][0], a, b[0], b[1]);
+      mma_bf16(acc[m][1], a, b[2], b[3]);
+    }
   }
+}
+
+__device__ __forceinline__ int mma_red_groups(int nu) {
+  return kWarps / (nu / 16);
+}
+
+__device__ __forceinline__ void mma_store(const Smem<__nv_bfloat16>& sm, int nu,
+                                          int mt, int bu_pad,
+                                          const float (&acc)[4][2][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int np = nu / 16, wn = warp % np, wk = warp / np;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    if (m >= mt) break;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int r = m * 16 + (lane >> 2), c = wn * 16 + t * 8 + (lane & 3) * 2;
+      float* p = sm.red + ((size_t)wk * bu_pad + r) * nu + c;
+      p[0] = acc[m][t][0];
+      p[1] = acc[m][t][1];
+      p[8 * nu] = acc[m][t][2];
+      p[8 * nu + 1] = acc[m][t][3];
+    }
+  }
+}
+
+// f32: each thread takes 4 columns x mt rows (rg, rg + 16, ...) over
+// every (16 / (nu / 4))-th row of the stage; no TF32.
+__device__ __forceinline__ void chunk_ffma(const Smem<float>& sm,
+                                           const float* stage, int nu, int mt,
+                                           int ka0, int nrows, int ldas,
+                                           float (&acc)[4][2][4]) {
+  const int ncg = nu / 4, kgn = 16 / ncg;
+  const int cgi = threadIdx.x % ncg, rg = (threadIdx.x / ncg) % 16,
+            kg = threadIdx.x / (ncg * 16);
+  for (int kk = kg; kk < nrows; kk += kgn) {
+    const float4 w4 = *reinterpret_cast<const float4*>(
+        stage + kk * nu + Tile<float>::b_chunk(kk, cgi, ncg) * 4);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      if (m >= mt) break;
+      const float x = sm.as[Tile<float>::a_at(rg + 16 * m, ka0 + kk, ldas)];
+      acc[m][0][0] = fmaf(x, w4.x, acc[m][0][0]);
+      acc[m][0][1] = fmaf(x, w4.y, acc[m][0][1]);
+      acc[m][0][2] = fmaf(x, w4.z, acc[m][0][2]);
+      acc[m][0][3] = fmaf(x, w4.w, acc[m][0][3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void ffma_store(const Smem<float>& sm, int nu,
+                                           int mt, int bu_pad,
+                                           const float (&acc)[4][2][4]) {
+  const int ncg = nu / 4;
+  const int cgi = threadIdx.x % ncg, rg = (threadIdx.x / ncg) % 16,
+            kg = threadIdx.x / (ncg * 16);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    if (m >= mt) break;
+    float* p = sm.red + ((size_t)kg * bu_pad + rg + 16 * m) * nu + cgi * 4;
+    *reinterpret_cast<float4*>(p) =
+        make_float4(acc[m][0][0], acc[m][0][1], acc[m][0][2], acc[m][0][3]);
+  }
+}
+
+__device__ __forceinline__ int ffma_red_groups(int nu) { return 16 / (nu / 4); }
+
+template <typename T> struct Core;
+template <> struct Core<__nv_bfloat16> {
+  static __device__ void chunk(const Smem<__nv_bfloat16>& sm,
+                               const __nv_bfloat16* stage, int nu, int mt,
+                               int ka0, int nrows, int ldas,
+                               float (&acc)[4][2][4]) {
+    chunk_mma(sm, stage, nu, mt, ka0, nrows, ldas, acc);
+  }
+  static __device__ void store(const Smem<__nv_bfloat16>& sm, int nu, int mt,
+                               int bu_pad, const float (&acc)[4][2][4]) {
+    mma_store(sm, nu, mt, bu_pad, acc);
+  }
+  static __device__ int groups(int nu) { return mma_red_groups(nu); }
+};
+template <> struct Core<float> {
+  static __device__ void chunk(const Smem<float>& sm, const float* stage,
+                               int nu, int mt, int ka0, int nrows, int ldas,
+                               float (&acc)[4][2][4]) {
+    chunk_ffma(sm, stage, nu, mt, ka0, nrows, ldas, acc);
+  }
+  static __device__ void store(const Smem<float>& sm, int nu, int mt,
+                               int bu_pad, const float (&acc)[4][2][4]) {
+    ffma_store(sm, nu, mt, bu_pad, acc);
+  }
+  static __device__ int groups(int nu) { return ffma_red_groups(nu); }
+};
+
+// One unit's product: out[r][j] = sum_{k in [k0, k1)} X[b0 + r][k] *
+// Wt[k][j] for r < mt*16, in f32, written to the unit's partial `out` in
+// global memory; Wt is the tile's packed slab [K][nu].
+template <typename T>
+__device__ void unit_product(const Input<T>& in, const T* __restrict__ w,
+                             int nu, int b0, int nb,
+                             int mt, int k0, int k1, int ldas, int bu_pad,
+                             const Smem<T>& sm, float* out) {
+  const int kc = kStageBytes / (nu * (int)sizeof(T));
+  const int nq = (k1 - k0 + kc - 1) / kc;
+  T* const stages = sm.ring;
+  const int stage_elems = kStageBytes / sizeof(T);
+  const StageCopy<T> cp(w, nu);
+  const int kpad = (k1 - k0 + 15) / 16 * 16;
+  // an embedding gather: the rows' tokens, read once
+  __shared__ int rows[kRowsPerGroup];
+  int rlo = kpad, rhi = 0, kseg = 0;         // slice columns through relu
+  for (int q = 0; q < in.n; ++q) {
+    const Seg<T>& g = in.s[q];
+    if (g.rows) {
+      for (int i = threadIdx.x; i < nb; i += kThreads)
+        rows[i] = __ldcg(g.rows + b0 + i);
+      __syncthreads();
+    }
+    if (g.relu) {
+      rlo = max(0, kseg - k0);
+      rhi = min(kpad, kseg + g.k - k0);
+    }
+    kseg += g.k;
+  }
+  // the input rows join the first weight stage's copy group
+  stage_a(in, b0, nb, mt, k0, k1, kpad, sm.as, ldas, rows);
+#pragma unroll
+  for (int q = 0; q < kRingStages - 1; ++q) {
+    if (q < nq)
+      cp.issue(k0 + q * kc, min(k0 + (q + 1) * kc, k1),
+               stages + q * stage_elems);
+    cp_async_commit();
+  }
+  float acc[4][2][4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][t][e] = 0.f;
+  for (int q = 0; q < nq; ++q) {
+    cp_async_wait<kRingStages - 2>();
+    __syncthreads();
+    if (q == 0 && rlo < rhi) {               // relu of staged embeddings
+      constexpr int CE = Tile<T>::kCE;
+      const int c0 = rlo / CE, nc = (rhi + CE - 1) / CE - c0;
+      for (int o = threadIdx.x; o < nb * nc; o += kThreads) {
+        const int r = o / nc, c = c0 + o % nc;
+        T* e = sm.as + Tile<T>::a_at(r, c * CE, ldas);
+#pragma unroll
+        for (int i = 0; i < CE; ++i) {
+          const int kk = c * CE + i;
+          if (kk >= rlo && kk < rhi)
+            e[i] = Cvt<T>::to(fmaxf(Cvt<T>::f(e[i]), 0.f));
+        }
+      }
+      __syncthreads();
+    }
+    const int qn = q + kRingStages - 1;
+    if (qn < nq)
+      cp.issue(k0 + qn * kc, min(k0 + (qn + 1) * kc, k1),
+               stages + (qn % kRingStages) * stage_elems);
+    cp_async_commit();
+    Core<T>::chunk(sm, stages + (q % kRingStages) * stage_elems, nu, mt,
+                   q * kc, min(kc, k1 - k0 - q * kc), ldas, acc);
+  }
+  cp_async_wait<0>();
+  __syncthreads();                           // the ring becomes `red`
+  Core<T>::store(sm, nu, mt, bu_pad, acc);
   __syncthreads();
-  for (int o = threadIdx.x; o < kRB * kTN; o += kThreads) {
+  // the warp (bf16) or thread (f32) groups along K, summed in order
+  const int ng = Core<T>::groups(nu), gstride = bu_pad * nu / 4;
+  const float4* red4 = reinterpret_cast<const float4*>(sm.red);
+  for (int o = threadIdx.x; o < mt * 4 * nu; o += kThreads) {
+    float4 v[8];
+#pragma unroll
+    for (int g = 0; g < 8; ++g)
+      if (g < ng) v[g] = red4[g * gstride + o];
+    float4 s = v[0];
+#pragma unroll
+    for (int g = 1; g < 8; ++g)
+      if (g < ng) {
+        s.x += v[g].x; s.y += v[g].y; s.z += v[g].z; s.w += v[g].w;
+      }
+    __stcg(reinterpret_cast<float4*>(out) + o, s);
+  }
+}
+
+// The input rows and the packed weight ([ntiles][K][nu]) of product `p`
+// of a job kind.
+template <typename T>
+__device__ Input<T> job_input(const Args<T>& a, int kind, int p,
+                              const T* h_mod_cur) {
+  const int R = a.R, D = a.D;
+  switch (kind) {
+    case MOD:
+      return p == 0 ? input(Seg<T>{a.fused, a.E, a.E, nullptr, false},
+                            Seg<T>{a.h_lang, R, R, nullptr, false})
+                    : input(Seg<T>{h_mod_cur, R, R, nullptr, false});
+    case ZX: return input(Seg<T>{a.wemb, a.W, a.W, a.tok, true});
+    case G1:
+      return input(Seg<T>{a.h_lang, R, R, nullptr, false},
+                   Seg<T>{a.ppos, R, R, nullptr, false},
+                   Seg<T>{a.att, D, D, nullptr, false});
+    case G2: return input(Seg<T>{a.gate_h, 2 * R + D, 2 * R + D, nullptr, false});
+    case LANG: return input(Seg<T>{a.ga, D, D, nullptr, false});
+    default:   // VPOS, ZH, LOGIT
+      return input(Seg<T>{a.h_lang, R, R, nullptr, false});
+  }
+}
+template <typename T>
+__device__ const T* job_weight(const Args<T>& a, int kind, int p) {
+  switch (kind) {
+    case MOD: return p == 0 ? a.wih_mod : a.whh_mod;
+    case VPOS: return a.wpos1;
+    case ZX: return a.wih_x;
+    case ZH: return a.whh_lang;
+    case G1: return a.wg1;
+    case G2: return a.wg2;
+    case LANG: return a.wih_a;
+    default: return a.wlogit;
+  }
+}
+
+// Copy rows x len values (row r at src + r * ld, `nvalid` of each valid,
+// the rest zero) into dst [rows][len] in shared memory: cp.async for whole,
+// aligned chunks, plain loads for the rest. len is a multiple of kCE.
+template <typename T>
+__device__ void stage_rows(T* dst, const T* src, int rows, int len,
+                           size_t ld, int nvalid) {
+  constexpr int CE = Tile<T>::kCE;
+  const int cpr = len / CE;
+  for (int o = threadIdx.x; o < rows * cpr; o += kThreads) {
+    const int r = o / cpr, c = (o % cpr) * CE;
+    const T* p = src + r * ld + c;
+    T* d = dst + r * len + c;
+    if (c + CE <= nvalid && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+      cp_async16(d, p);
+    } else {
+#pragma unroll
+      for (int e = 0; e < CE; ++e)
+        d[e] = c + e < nvalid ? __ldcg(p + e) : Cvt<T>::to(0.f);
+    }
+  }
+}
+
+// The reducing unit. One copy group brings the tile's partials (rows <
+// mt*16 of each slice) and every operand of its epilogue (biases, the
+// LSTM cell, zx and zh, att) into shared memory; then it sums the slices
+// of each product in slice order, rounds once to T, and runs the kind's
+// epilogue for rows b0 .. b0 + nb from shared memory alone.
+template <typename T>
+__device__ void reduce_epilogue(const Args<T>& a, const Job& j, ColMap cm,
+                                const float* base, int stot, int b0, int nb,
+                                int mt, float* sp, T* h_mod_nxt) {
+  const int nu = j.nu, rows = mt * 16, R = a.R, hid = nu / 4;
+  const int per = rows * nu / 4;             // 16-byte chunks a slice
+  for (int q = 0; q < stot; ++q)
+    for (int e = threadIdx.x; e < per; e += kThreads)
+      cp_async16(sp + ((size_t)q * per + e) * 4,
+                 base + (size_t)q * a.bu_pad * nu + e * 4);
+  // operands, after the partials: bias [4][hid] or [nu]; for the gates
+  // c [nb][hid], and for the language LSTM zx, zh [nb * 4][hid]; for
+  // gate2x att [nb][nu]
+  T* bias = reinterpret_cast<T*>(sp + (size_t)stot * rows * nu);
+  T* cst = bias + nu;
+  T* zxs = cst + nb * hid;
+  T* zhs = zxs + nb * nu;
+  T* att = bias + nu;
+  if (j.gates) {
+    const bool mod = j.kind == MOD;
+    stage_rows(bias, (mod ? a.b_mod : a.b_lang) + cm.n0, 4, hid, R, cm.gvalid);
+    stage_rows(cst, (mod ? a.c_mod : a.c_lang) + (size_t)b0 * R + cm.n0, nb,
+               hid, R, cm.gvalid);
+    if (!mod) {
+      stage_rows(zxs, a.zx + (size_t)b0 * 4 * R + cm.n0, nb * 4, hid, R,
+                 cm.gvalid);
+      stage_rows(zhs, a.zh + (size_t)b0 * 4 * R + cm.n0, nb * 4, hid, R,
+                 cm.gvalid);
+    }
+  } else if (j.kind != ZX && j.kind != ZH) {
+    const T* b = j.kind == VPOS ? a.bpos1 : j.kind == G1 ? a.bg1
+               : j.kind == G2 ? a.bg2 : a.blogit;
+    stage_rows(bias, b + cm.n0, 1, nu, 0, cm.gvalid);
+    if (j.kind == G2)
+      stage_rows(att, a.att + (size_t)b0 * a.D + cm.n0, nb, nu, a.D,
+                 cm.gvalid);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  auto prod = [&](int i, int c, int p) {
+    const int sb = p ? j.s0 : 0, se = p ? stot : j.s0;
     float s = 0.f;
+    for (int q = sb; q < se; ++q) s += sp[((size_t)q * rows + i) * nu + c];
+    return rnd<T>(s);
+  };
+  auto f = [](T x) { return Cvt<T>::f(x); };
+  if (j.gates) {
+    for (int o = threadIdx.x; o < nb * hid; o += kThreads) {
+      const int i = o / hid, rr = o % hid, b = b0 + i, r = cm.n0 + rr;
+      if (rr >= cm.gvalid) continue;
+      float z[4];
 #pragma unroll
-    for (int q = 0; q < kKS; ++q) s += red[q * kRB * kTN + o];
-    res[o] = rnd<T>(s);
+      for (int q = 0; q < 4; ++q) {
+        const int c = q * hid + rr;
+        const float bq = f(bias[q * hid + rr]);
+        z[q] = j.kind == MOD
+                   ? addr<T>(addr<T>(prod(i, c, 0), prod(i, c, 1)), bq)
+                   : addr<T>(addr<T>(addr<T>(f(zxs[(i * 4 + q) * hid + rr]),
+                                             prod(i, c, 0)),
+                                     f(zhs[(i * 4 + q) * hid + rr])),
+                             bq);
+      }
+      const float cn = sigm(z[1]) * f(cst[o]) + sigm(z[0]) * tanhf(z[2]);
+      const float hn = sigm(z[3]) * tanhf(cn);
+      T* h = j.kind == MOD ? h_mod_nxt : a.h_lang;
+      T* c = j.kind == MOD ? a.c_mod : a.c_lang;
+      st(h + (size_t)b * R + r, hn);
+      st(c + (size_t)b * R + r, cn);
+    }
+    return;
   }
-  __syncthreads();
+  for (int o = threadIdx.x; o < nb * nu; o += kThreads) {
+    const int i = o / nu, c = o % nu, b = b0 + i;
+    if (!cm.valid(c)) continue;
+    const int n = cm.col(c);
+    const float v = prod(i, c, 0);
+    switch (j.kind) {
+      case VPOS:
+        st(a.vpos + (size_t)b * R + n, fmaxf(addr<T>(v, f(bias[c])), 0.f));
+        break;
+      case ZX: st(a.zx + (size_t)b * 4 * R + n, v); break;
+      case ZH: st(a.zh + (size_t)b * 4 * R + n, v); break;
+      case G1:
+        st(a.gate_h + (size_t)b * (2 * R + a.D) + n,
+           fmaxf(addr<T>(v, f(bias[c])), 0.f));
+        break;
+      case G2: {
+        const float g = rnd<T>(sigm(addr<T>(v, f(bias[c]))));
+        st(a.ga + (size_t)b * a.D + n, mulr<T>(g, f(att[o])));
+        break;
+      }
+      default:                               // LOGIT
+        a.logits[(size_t)b * a.V + n] = addr<T>(v, f(bias[c]));
+    }
+  }
 }
 
-// LSTM gate math in f32 from rounded pre-activations z (i, f, g, o).
+// Every unit of one product phase, grid-strided over the blocks; `plan`
+// is the kernel's copy of the plan in shared memory.
 template <typename T>
-__device__ void lstm_store(const float z[4], T* h, T* c) {
-  const float c_prev = lda(c);
-  const float cn = sigm(z[1]) * c_prev + sigm(z[0]) * tanhf(z[2]);
-  const float hn = sigm(z[3]) * tanhf(cn);
-  st(h, hn);
-  st(c, cn);
+__device__ void product_phase(const Args<T>& a, int phase, const T* h_mod_cur,
+                              T* h_mod_nxt, const Smem<T>& sm, int* last,
+                              const int* plan) {
+  const int* splan = plan + phase * kPhaseInts;
+  const int njobs = splan[0], nunits = splan[1];
+  for (int u = blockIdx.x; u < nunits; u += gridDim.x) {
+    int ji = 0;
+    while (ji + 1 < njobs && u >= splan[2 + (ji + 1) * kJobInts + J_UNIT]) ++ji;
+    const Job j = load_job(splan + 2 + ji * kJobInts);
+    const int stot = j.s0 + j.s1, tgs = j.ntiles * a.groups;
+    const int ul = u - j.unit, s = ul / tgs, tg = ul % tgs;
+    const int tile = tg / a.groups, grp = tg % a.groups;
+    const int b0 = grp * kRowsPerGroup, nb = min(kRowsPerGroup, a.B - b0);
+    const int mt = (nb + 15) / 16;
+    const int p = s < j.s0 ? 0 : 1, sl = p ? s - j.s0 : s;
+    const int K = p ? j.k1 : j.k0, k0 = sl * j.ks, k1 = min(k0 + j.ks, K);
+    ColMap cm;
+    if (j.gates) {
+      const int hid = j.nu / 4;
+      cm = ColMap{tile * hid, hid, j.n / 4, min(hid, j.nvalid - tile * hid)};
+    } else {
+      cm = ColMap{tile * j.nu, j.nu, 0, min(j.nu, j.nvalid - tile * j.nu)};
+    }
+    float* base = a.part + j.part + (size_t)tg * stot * a.bu_pad * j.nu;
+    unit_product(job_input(a, j.kind, p, h_mod_cur),
+                 job_weight(a, j.kind, p) + (size_t)tile * K * j.nu, j.nu, b0,
+                 nb, mt, k0, k1, a.lda, a.bu_pad, sm,
+                 base + (size_t)s * a.bu_pad * j.nu);
+    __syncthreads();
+    if (stot > 1) {
+      // the last of the tile's units to take a ticket reduces; a tile of
+      // one slice reduces its own partial
+      int* ticket = a.tickets + j.ticket + tg;
+      if (threadIdx.x == 0) {
+        *last = ticket_add(ticket) == stot - 1;
+        if (*last) *ticket = 0;              // for the next step
+      }
+      __syncthreads();
+      if (!*last) continue;
+    }
+    reduce_epilogue(a, j, cm, base, stot, b0, nb, mt,
+                    reinterpret_cast<float*>(sm.as), h_mod_nxt);
+    __syncthreads();
+  }
 }
 
+// bf16 runs two blocks an SM (128 registers), so that two units' load
+// and reduction chains overlap on every SM; f32, the exactness
+// instance, runs one.
+template <typename T> struct BlocksPerSm { static constexpr int v = 1; };
+template <> struct BlocksPerSm<__nv_bfloat16> { static constexpr int v = 2; };
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, BlocksPerSm<T>::v)
     greedy_decode_kernel(Args<T> a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float4 smem4[];
+  __shared__ int last;
+  __shared__ int splan[kPhases * kPhaseInts];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int B = a.B, R = a.R, D = a.D, E = a.E, V = a.V, P = a.P;
-  const int R4 = 4 * R, G1 = 2 * R + D;
-  const int RG = (B + kRB - 1) / kRB;
-  const int KX = max(max(E + R, G1), max(a.W, D));
-  float* xs = smem;
-  float* red = xs + kRB * KX;
-  float* res0 = red + kKS * kRB * kTN;
-  float* res1 = res0 + kRB * kTN;
+  const int B = a.B, R = a.R, D = a.D, V = a.V, P = a.P;
+  Smem<T> sm;
+  sm.as = reinterpret_cast<T*>(smem4);
+  sm.ring = sm.as + (size_t)a.bu_pad * a.lda;
+  sm.red = reinterpret_cast<float*>(sm.ring);  // once a unit's loop is done
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarps = kThreads / 32;
+  const int nwarps = kWarps;
+  for (int i = threadIdx.x; i < kPhases * kPhaseInts; i += kThreads)
+    splan[i] = __ldg(a.plan + i);
+  __syncthreads();
 
-  const int u_mod = ((R + kGT - 1) / kGT) * RG;
-  const int u_vpos = ((R + kTN - 1) / kTN) * RG;
-  const int u_4r = ((R4 + kTN - 1) / kTN) * RG;
-  const int u_g1 = ((G1 + kTN - 1) / kTN) * RG;
-  const int u_g2 = ((D + kTN - 1) / kTN) * RG;
-  const int u_v = ((V + kTN - 1) / kTN) * RG;
   // phase times summed over steps, as block 0 sees them between barriers
   const bool timing = a.phase_ns && blockIdx.x == 0 && threadIdx.x == 0;
-  unsigned long long last = timing ? globaltimer() : 0;
+  unsigned long long t_last = timing ? globaltimer() : 0;
   auto sync = [&](int phase) {
     grid.sync();
     if (timing) {
       const unsigned long long now = globaltimer();
-      a.phase_ns[phase] += now - last;
-      last = now;
+      a.phase_ns[phase] += now - t_last;
+      t_last = now;
     }
   };
 
@@ -330,56 +828,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     T* h_mod_nxt = a.h_mod + (size_t)((t + 1) & 1) * B * R;
 
     // ---- phase 1: step-start products -----------------------------
-    for (int u = blockIdx.x; u < u_mod + u_vpos + 2 * u_4r; u += gridDim.x) {
-      if (u < u_mod) {                       // module-attention LSTM
-        const int tile = u / RG, b0 = (u % RG) * kRB;
-        const ColMap cm = gates(tile, R);
-        tile_mm(input(Seg<T>{a.fused, E, E, nullptr, false},
-                      Seg<T>{a.h_lang, R, R, nullptr, false}),
-                a.wih_mod, R4, cm, b0, B, xs, red, res0);
-        tile_mm(input(Seg<T>{h_mod_cur, R, R, nullptr, false}), a.whh_mod,
-                R4, cm, b0, B, xs, red, res1);
-        for (int o = threadIdx.x; o < kRB * kGT; o += kThreads) {
-          const int i = o / kGT, rr = o % kGT, b = b0 + i, r = cm.n0 + rr;
-          if (b >= B || rr >= cm.gvalid) continue;
-          float z[4];
-          for (int q = 0; q < 4; ++q) {
-            const int j = i * kTN + q * kGT + rr;
-            z[q] = addr<T>(addr<T>(res0[j], res1[j]), ldw(a.b_mod + q * R + r));
-          }
-          lstm_store(z, h_mod_nxt + (size_t)b * R + r, a.c_mod + (size_t)b * R + r);
-        }
-      } else if (u < u_mod + u_vpos) {       // vpos = relu(h_lang @ wpos1 + b)
-        const int v = u - u_mod, tile = v / RG, b0 = (v % RG) * kRB;
-        const ColMap cm = contiguous(tile, R);
-        tile_mm(input(Seg<T>{a.h_lang, R, R, nullptr, false}), a.wpos1, R,
-                cm, b0, B, xs, red, res0);
-        for (int o = threadIdx.x; o < kRB * kTN; o += kThreads) {
-          const int i = o / kTN, j = o % kTN, b = b0 + i, n = cm.n0 + j;
-          if (b >= B || !cm.valid(j)) continue;
-          st(a.vpos + (size_t)b * R + n,
-             fmaxf(addr<T>(res0[o], ldw(a.bpos1 + n)), 0.f));
-        }
-      } else {                               // xt @ wih_x, h_lang @ whh_lang
-        const int v = u - u_mod - u_vpos, which = v / u_4r;
-        const int tile = (v % u_4r) / RG, b0 = (v % RG) * kRB;
-        const ColMap cm = contiguous(tile, R4);
-        if (which == 0) {
-          tile_mm(input(Seg<T>{a.wemb, a.W, a.W, a.tok, true}), a.wih_x,
-                  R4, cm, b0, B, xs, red, res0);
-        } else {
-          tile_mm(input(Seg<T>{a.h_lang, R, R, nullptr, false}), a.whh_lang,
-                  R4, cm, b0, B, xs, red, res0);
-        }
-        T* out = which == 0 ? a.zx : a.zh;
-        for (int o = threadIdx.x; o < kRB * kTN; o += kThreads) {
-          const int i = o / kTN, j = o % kTN, b = b0 + i;
-          if (b >= B || !cm.valid(j)) continue;
-          st(out + (size_t)b * R4 + cm.n0 + j, res0[o]);
-        }
-      }
-      __syncthreads();
-    }
+    product_phase(a, 0, h_mod_cur, h_mod_nxt, sm, &last, splan);
     sync(0);
 
     // ---- phase 2 (per row): mw, POS head, att ---------------------
@@ -437,74 +886,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     sync(1);
 
     // ---- phase 3: gate_h = relu([h_lang, ppos, att] @ wg1 + bg1) --
-    for (int u = blockIdx.x; u < u_g1; u += gridDim.x) {
-      const int tile = u / RG, b0 = (u % RG) * kRB;
-      const ColMap cm = contiguous(tile, G1);
-      tile_mm(input(Seg<T>{a.h_lang, R, R, nullptr, false},
-                    Seg<T>{a.ppos, R, R, nullptr, false},
-                    Seg<T>{a.att, D, D, nullptr, false}),
-              a.wg1, G1, cm, b0, B, xs, red, res0);
-      for (int o = threadIdx.x; o < kRB * kTN; o += kThreads) {
-        const int i = o / kTN, j = o % kTN, b = b0 + i, n = cm.n0 + j;
-        if (b >= B || !cm.valid(j)) continue;
-        st(a.gate_h + (size_t)b * G1 + n,
-           fmaxf(addr<T>(res0[o], ldw(a.bg1 + n)), 0.f));
-      }
-      __syncthreads();
-    }
+    product_phase(a, 1, h_mod_cur, h_mod_nxt, sm, &last, splan);
     sync(2);
-
     // ---- phase 4: gate = sigmoid(gate_h @ wg2 + bg2); ga = gate*att
-    for (int u = blockIdx.x; u < u_g2; u += gridDim.x) {
-      const int tile = u / RG, b0 = (u % RG) * kRB;
-      const ColMap cm = contiguous(tile, D);
-      tile_mm(input(Seg<T>{a.gate_h, G1, G1, nullptr, false}), a.wg2, D, cm,
-              b0, B, xs, red, res0);
-      for (int o = threadIdx.x; o < kRB * kTN; o += kThreads) {
-        const int i = o / kTN, j = o % kTN, b = b0 + i, n = cm.n0 + j;
-        if (b >= B || !cm.valid(j)) continue;
-        const float g = rnd<T>(sigm(addr<T>(res0[o], ldw(a.bg2 + n))));
-        st(a.ga + (size_t)b * D + n, mulr<T>(g, lda(a.att + (size_t)b * D + n)));
-      }
-      __syncthreads();
-    }
+    product_phase(a, 2, h_mod_cur, h_mod_nxt, sm, &last, splan);
     sync(3);
-
     // ---- phase 5: language LSTM -----------------------------------
-    for (int u = blockIdx.x; u < u_mod; u += gridDim.x) {
-      const int tile = u / RG, b0 = (u % RG) * kRB;
-      const ColMap cm = gates(tile, R);
-      tile_mm(input(Seg<T>{a.ga, D, D, nullptr, false}), a.wih_a, R4, cm, b0,
-              B, xs, red, res0);
-      for (int o = threadIdx.x; o < kRB * kGT; o += kThreads) {
-        const int i = o / kGT, rr = o % kGT, b = b0 + i, r = cm.n0 + rr;
-        if (b >= B || rr >= cm.gvalid) continue;
-        float z[4];
-        for (int q = 0; q < 4; ++q) {
-          const size_t n = (size_t)b * R4 + q * R + r;
-          z[q] = addr<T>(addr<T>(addr<T>(lda(a.zx + n), res0[i * kTN + q * kGT + rr]),
-                                 lda(a.zh + n)),
-                         ldw(a.b_lang + q * R + r));
-        }
-        lstm_store(z, a.h_lang + (size_t)b * R + r, a.c_lang + (size_t)b * R + r);
-      }
-      __syncthreads();
-    }
+    product_phase(a, 3, h_mod_cur, h_mod_nxt, sm, &last, splan);
     sync(4);
-
     // ---- phase 6: logits = h_lang @ wlogit + blogit -----------------
-    for (int u = blockIdx.x; u < u_v; u += gridDim.x) {
-      const int tile = u / RG, b0 = (u % RG) * kRB;
-      const ColMap cm = contiguous(tile, V);
-      tile_mm(input(Seg<T>{a.h_lang, R, R, nullptr, false}), a.wlogit, V, cm,
-              b0, B, xs, red, res0);
-      for (int o = threadIdx.x; o < kRB * kTN; o += kThreads) {
-        const int i = o / kTN, j = o % kTN, b = b0 + i, n = cm.n0 + j;
-        if (b >= B || !cm.valid(j)) continue;
-        a.logits[(size_t)b * V + n] = addr<T>(res0[o], ldw(a.blogit + n));
-      }
-      __syncthreads();
-    }
+    product_phase(a, 4, h_mod_cur, h_mod_nxt, sm, &last, splan);
     sync(5);
 
     // ---- phase 7 (a warp per row): log-softmax -> greedy token ------
@@ -556,9 +947,13 @@ enum {
   kNumWeights = 22,
   P_FUSED = kNumWeights, P_FEATS, P_SEQ, P_LPS, P_MW_OUT, P_H_MOD, P_C_MOD,
   P_H_LANG, P_C_LANG, P_VPOS, P_ZX, P_ZH, P_ATT, P_PPOS, P_GATE_H, P_GA,
-  P_MW, P_LOGITS, P_TOK, P_UNFIN, P_COUNTS, P_PHASE_NS, P_COUNT
+  P_MW, P_LOGITS, P_TOK, P_UNFIN, P_COUNTS, P_PLAN, P_PART, P_TICKETS,
+  P_PHASE_NS, P_COUNT
 };
-enum { D_B, D_T, D_E, D_R, D_D, D_W, D_V, D_P, D_CONSTRAINT, D_COUNT };
+enum {
+  D_B, D_T, D_E, D_R, D_D, D_W, D_V, D_P, D_CONSTRAINT, D_BU_PAD, D_GROUPS,
+  D_LDA, D_SMEM, D_COUNT
+};
 
 template <typename T>
 int launch(void* const* p, const int* d, cudaStream_t stream, int* grid_out) {
@@ -591,18 +986,24 @@ int launch(void* const* p, const int* d, cudaStream_t stream, int* grid_out) {
   a.tok = static_cast<int*>(p[P_TOK]);
   a.unfin = static_cast<int*>(p[P_UNFIN]);
   a.counts = static_cast<int*>(p[P_COUNTS]);
+  a.plan = static_cast<const int*>(p[P_PLAN]);
+  a.part = static_cast<float*>(p[P_PART]);
+  a.tickets = static_cast<int*>(p[P_TICKETS]);
   a.phase_ns = static_cast<unsigned long long*>(p[P_PHASE_NS]);
   a.B = d[D_B]; a.steps = d[D_T]; a.E = d[D_E]; a.R = d[D_R]; a.D = d[D_D];
   a.W = d[D_W]; a.V = d[D_V]; a.P = d[D_P]; a.constraint = d[D_CONSTRAINT];
+  a.bu_pad = d[D_BU_PAD]; a.groups = d[D_GROUPS]; a.lda = d[D_LDA];
+  const int smem = d[D_SMEM];
 
-  const int KX = std::max({a.E + a.R, 2 * a.R + a.D, a.W, a.D});
-  const int xs_floats =
-      std::max(kRB * KX, 2 * a.R + 2 * (3 + a.P));
-  const size_t smem = sizeof(float) *
-      ((size_t)xs_floats + kKS * kRB * kTN + 2 * kRB * kTN);
+  // the plan's shared memory must hold this instance's layout
+  const size_t need = std::max<size_t>(
+      (size_t)a.bu_pad * a.lda * sizeof(T) + kRingStages * kStageBytes,
+      sizeof(float) * (2 * a.R + 2 * (3 + a.P)));
+  if ((size_t)smem < need || a.lda % 64 || a.bu_pad % 16 || a.bu_pad > 64)
+    return cudaErrorInvalidValue;
   auto* fn = greedy_decode_kernel<T>;
   cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;

@@ -4,7 +4,10 @@ Counterpart of `ekaid_tpu/models/pallas_decode.py` (its Pallas kernel
 `_decode_kernel` runs the loop on the TPU). The kernel for the card is
 `ekaid_torch/csrc/greedy_decode.cu`, one cooperative launch per decode
 with the early exit decided on the device; its source note states what
-bounds it on an H100 and what its design does about that.
+bounds it on an H100 and what its design does about that. This module
+computes the kernel's work plan (`decode_plan`: how each product phase
+is cut into units) and packs the product weights for it
+(`pack_weight`); the kernel computes none of it.
 
 `greedy_decode` launches the kernel for CUDA tensors and never falls
 back. It runs `greedy_decode_plain` only for tensors on the CPU. Both
@@ -22,7 +25,8 @@ sigmoid run in f32 from the rounded inputs.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -34,6 +38,207 @@ WEIGHT_NAMES = (
     "wemb", "wih_mod", "whh_mod", "b_mod", "wfc", "bfc", "wpos1", "bpos1",
     "wwp", "bwp", "wpos2", "bpos2", "wg1", "bg1", "wg2", "bg2",
     "wih_x", "wih_a", "whh_lang", "b_lang", "wlogit", "blogit")
+
+# ---- the kernel's work plan ------------------------------------------------
+#
+# The product phases (1, 3, 4, 5, 6) are cut into units: one unit is up to
+# 64 batch rows (a row group) x `nu` weight columns (a column tile) x one
+# K-slice of `ks` rows of one product. Each unit writes its f32 partial to
+# scratch; the unit that takes the last ticket of its (tile, row group)
+# sums the slices in slice order, rounds once and runs the epilogue. The
+# plan fixes every shape here; the kernel reads it and computes none of it.
+
+#: epilogue kinds, as the kernel's `Kind` enum
+MOD, VPOS, ZX, ZH, G1, G2, LANG, LOGIT = range(8)
+KIND_NAMES = ("mod_lstm", "vpos", "zx", "zh", "gate1x", "gate2x",
+              "lang_lstm", "logits")
+#: the product phases, as the kernel runs them (phases 2 and 7 are per row)
+PHASE_KINDS = ((MOD, VPOS, ZX, ZH), (G1,), (G2,), (LANG,), (LOGIT,))
+ROWS_PER_GROUP = 64
+MAX_JOBS = 4
+JOB_INTS = 16
+PHASE_INTS = 2 + MAX_JOBS * JOB_INTS
+KS_CHOICES = (512, 256, 128, 64, 32, 16)
+NU_CHOICES = (64, 32, 16)
+GATE_NU_CHOICES = (64, 32)      # 16 or 8 hidden units a gate: whole chunks
+# shared memory of the product phases, as the kernel lays it out: the
+# activation rows (bu_pad x lda) and the weight ring, which the split-K
+# sums take over once a unit's loop is done
+RING_STAGES = 5
+STAGE_BYTES = 8192
+SMEM_LIMIT = 232448
+
+
+def blocks_per_sm(itemsize: int) -> int:
+    """The kernel's blocks an SM where shared memory allows, as its
+    `BlocksPerSm`: two for bf16 (128 registers), one for f32."""
+    return 2 if itemsize == 2 else 1
+
+
+@dataclass(frozen=True)
+class Job:
+    """One kind of tile in a phase: `ntiles` column tiles of `nu` columns
+    over `groups` row groups, each cut into the K-slices of its products
+    (the module LSTM has two, rounded separately)."""
+    kind: int
+    nu: int
+    ntiles: int
+    ks: int
+    ks_of: Tuple[int, ...]          # K of each product
+    n: int                          # weight columns (the row length)
+    gates: bool                     # tile = 4 gates x nu/4 hidden units
+    unit_begin: int
+    part_begin: int                 # floats, within the phase's scratch
+    ticket_begin: int
+
+    def slices(self, p: int) -> int:
+        return -(-self.ks_of[p] // self.ks)
+
+    @property
+    def slices_total(self) -> int:
+        return sum(self.slices(p) for p in range(len(self.ks_of)))
+
+    def columns(self, tile: int) -> List[Optional[int]]:
+        """Weight column of each tile column, None where it is padding."""
+        if not self.gates:
+            return [c if c < self.n else None
+                    for c in range(tile * self.nu, (tile + 1) * self.nu)]
+        hid, r = self.nu // 4, self.n // 4
+        return [q * r + tile * hid + j if tile * hid + j < r else None
+                for q in range(4) for j in range(hid)]
+
+    def k_bounds(self, p: int, s: int) -> Tuple[int, int]:
+        return s * self.ks, min((s + 1) * self.ks, self.ks_of[p])
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    bu_pad: int                     # rows of a unit, padded to 16
+    groups: int                     # row groups of up to 64 rows
+    lda: int                        # activation row stride in shared memory
+    smem: int                       # dynamic shared memory, bytes
+    part_floats: int                # split-K scratch, the largest phase
+    tickets: int                    # ticket counters, the largest phase
+    phases: Tuple[Tuple[Job, ...], ...]
+
+    def units(self, phase: int) -> int:
+        return sum(j.ntiles * self.groups * j.slices_total
+                   for j in self.phases[phase])
+
+    def array(self) -> List[int]:
+        """The plan as the kernel reads it: PHASE_INTS int32 a phase."""
+        out = []
+        for phase, jobs in enumerate(self.phases):
+            row = [len(jobs), self.units(phase)]
+            for j in jobs:
+                k1 = j.ks_of[1] if len(j.ks_of) > 1 else 0
+                s1 = j.slices(1) if len(j.ks_of) > 1 else 0
+                row += [j.kind, j.nu, j.ntiles, j.ks, len(j.ks_of),
+                        j.ks_of[0], j.slices(0), k1, s1, j.unit_begin,
+                        j.ntiles * self.groups * j.slices_total,
+                        j.part_begin, j.ticket_begin, j.n, int(j.gates),
+                        j.n // 4 if j.gates else j.n]
+            out += row + [0] * (PHASE_INTS - len(row))
+        return out
+
+
+def product_smem(bu_pad: int, lda: int, itemsize: int) -> int:
+    """Shared memory of a product unit: the input rows and the weight ring
+    (later the split-K buffer). The reducing unit stages its f32
+    partials over all of it."""
+    return bu_pad * lda * itemsize + RING_STAGES * STAGE_BYTES
+
+
+def reducer_smem(kind: int, slices: int, bu_pad: int, nu: int,
+                 itemsize: int) -> int:
+    """Shared memory the reducing unit stages: the f32 partials of every
+    slice, then its epilogue's operands (the bias; the LSTM cell, and zx
+    and zh for the language LSTM; att for gate2x)."""
+    ops = nu
+    if kind in (MOD, LANG):
+        ops += bu_pad * nu // 4 + (2 * bu_pad * nu if kind == LANG else 0)
+    elif kind == G2:
+        ops += bu_pad * nu
+    return slices * bu_pad * nu * 4 + ops * itemsize
+
+
+def _products(kind, E, R, D, W, V):
+    """(K of each product, weight columns, gate tile) of a kind."""
+    G = 2 * R + D
+    return {MOD: ((E + R, R), 4 * R, True), VPOS: ((R,), R, False),
+            ZX: ((W,), 4 * R, False), ZH: ((R,), 4 * R, False),
+            G1: ((G,), G, False), G2: ((G,), D, False),
+            LANG: ((D,), 4 * R, True), LOGIT: ((R,), V, False)}[kind]
+
+
+def decode_plan(B: int, E: int, R: int, D: int, W: int, V: int, P: int,
+                sms: int, itemsize: int = 2) -> DecodePlan:
+    """The kernel's work plan for a batch of B rows on `sms` SMs, for
+    weights and activations of `itemsize` bytes.
+
+    Each phase takes the (slice length, column tile) whose unit count
+    reaches `sms` at the least cost, counted in elements: the rounds of
+    units over blocks_per_sm(itemsize) x sms blocks times a unit's
+    weight and activation tiles, plus the reducing unit's read of the
+    f32 partials. Where no choice reaches `sms`, the one with the most
+    units. Raises ValueError on shapes the kernel cannot take."""
+    if min(B, E, R, D, W, V, P) < 1 or sms < 1:
+        raise ValueError(f"decode_plan: non-positive shape B={B} E={E} "
+                         f"R={R} D={D} W={W} V={V} P={P} sms={sms}")
+    bu = min(B, ROWS_PER_GROUP)
+    bu_pad = -(-bu // 16) * 16
+    groups = -(-B // ROWS_PER_GROUP)
+    # the activation tile holds the longest slice any phase may take
+    k_max = max(k for kind in range(8) for k in _products(kind, E, R, D, W,
+                                                           V)[0])
+    lda = min(max(KS_CHOICES), -(-k_max // 64) * 64)
+    phases = []
+    for kinds in PHASE_KINDS:
+        gates = _products(kinds[0], E, R, D, W, V)[2]
+        best = None
+        for ks in KS_CHOICES:
+            for nu in GATE_NU_CHOICES if gates else NU_CHOICES:
+                units, cost_red, fits = 0, 0, True
+                for kind in kinds:
+                    kp, n, g = _products(kind, E, R, D, W, V)
+                    ntiles = -(-(n // 4 if g else n) // (nu // 4 if g else nu))
+                    s = sum(-(-k // ks) for k in kp)
+                    units += ntiles * groups * s
+                    cost_red = max(cost_red, s * bu_pad * nu * 2)
+                    fits &= reducer_smem(kind, s, bu_pad, nu, itemsize) <= \
+                        product_smem(bu_pad, lda, itemsize)
+                if not fits:
+                    continue            # the reducer's staging must fit
+                rounds = -(-units // (blocks_per_sm(itemsize) * sms))
+                cost = rounds * ks * (nu + bu_pad) + cost_red
+                key = (units < sms, -units if units < sms else cost, -ks)
+                if best is None or key < best[0]:
+                    best = (key, ks, nu)
+        if best is None:
+            raise ValueError(f"decode_plan: no unit plan fits phase "
+                             f"{[KIND_NAMES[k] for k in kinds]}")
+        _, ks, nu = best
+        jobs, unit, part, ticket = [], 0, 0, 0
+        for kind in kinds:
+            kp, n, g = _products(kind, E, R, D, W, V)
+            ntiles = -(-(n // 4 if g else n) // (nu // 4 if g else nu))
+            j = Job(kind, nu, ntiles, ks, kp, n, g, unit, part, ticket)
+            jobs.append(j)
+            unit += ntiles * groups * j.slices_total
+            part += ntiles * groups * j.slices_total * bu_pad * nu
+            ticket += ntiles * groups
+        phases.append(tuple(jobs))
+    products = product_smem(bu_pad, lda, itemsize)
+    per_row = 4 * (2 * R + 2 * (3 + P))          # phase 2's row buffers
+    smem = max(products, per_row)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"decode_plan: {smem} bytes of shared memory "
+                         f"(R={R}, P={P}) exceed {SMEM_LIMIT}")
+    part_floats = max(sum(j.ntiles * groups * j.slices_total * bu_pad * j.nu
+                          for j in jobs) for jobs in phases)
+    tickets = max(sum(j.ntiles * groups for j in jobs) for jobs in phases)
+    return DecodePlan(bu_pad, groups, lda, smem, part_floats, tickets,
+                      tuple(phases))
 
 
 def decode_weights(speaker, cfg, policy: Policy) -> Dict[str, torch.Tensor]:
@@ -73,11 +278,18 @@ def _gates(z, c_prev, dt):
     return h.to(dt), c.to(dt)
 
 
+#: the per-step intermediates `scratch=True` returns, as the kernel keeps
+#: them: [B, n] in the compute dtype, logits f32
+SCRATCH_NAMES = ("vpos", "zx", "zh", "h_mod", "gate_h", "ga", "h_lang",
+                 "logits")
+
+
 def greedy_decode_plain(w: Dict[str, torch.Tensor], cfg, policy: Policy,
-                        fused: torch.Tensor, feats: torch.Tensor
-                        ) -> Dict[str, torch.Tensor]:
+                        fused: torch.Tensor, feats: torch.Tensor,
+                        scratch: bool = False) -> Dict[str, torch.Tensor]:
     """The kernel's loop in plain torch, step for step. fused [B, E] and
-    feats [B, 3, D] (bef, diff, aft) in the compute dtype."""
+    feats [B, 3, D] (bef, diff, aft) in the compute dtype. With
+    `scratch`, the result also holds the last step's SCRATCH_NAMES."""
     _check_knobs(cfg)
     dt = policy.compute_dtype
     f32 = torch.float32
@@ -115,8 +327,9 @@ def greedy_decode_plain(w: Dict[str, torch.Tensor], cfg, policy: Policy,
             mm(torch.cat([h_lang, ppos, att], -1), w["wg1"]) + w["bg1"])
         gate = torch.sigmoid(
             (mm(gate_h, w["wg2"]) + w["bg2"]).to(f32)).to(dt)
-        z_lang = (mm(xt, w["wih_x"]) + mm(gate * att, w["wih_a"])
-                  + mm(h_lang, w["whh_lang"]) + w["b_lang"])
+        zx, ga = mm(xt, w["wih_x"]), gate * att
+        zh = mm(h_lang, w["whh_lang"])
+        z_lang = zx + mm(ga, w["wih_a"]) + zh + w["b_lang"]
         h_lang, c_lang = _gates(z_lang, c_lang, dt)
         logits = (mm(h_lang, w["wlogit"]) + w["blogit"]).to(f32)
         m = logits.max(-1, keepdim=True).values
@@ -135,37 +348,104 @@ def greedy_decode_plain(w: Dict[str, torch.Tensor], cfg, policy: Policy,
         lps[:, t] = lp
         mws[:, t] = mw * (nxt > 0)[:, None].to(f32)
         it = nxt
-    return {"seq": seq, "logprobs": lps, "module_weights": mws}
+        step = {"vpos": vpos, "zx": zx, "zh": zh, "h_mod": h_mod,
+                "gate_h": gate_h, "ga": ga, "h_lang": h_lang,
+                "logits": logits}
+    out = {"seq": seq, "logprobs": lps, "module_weights": mws}
+    if scratch:
+        out.update(step)
+    return out
 
 
 def greedy_decode(w: Dict[str, torch.Tensor], cfg, policy: Policy,
                   fused: torch.Tensor, feats: torch.Tensor,
-                  phase_ns: Optional[torch.Tensor] = None
-                  ) -> Dict[str, torch.Tensor]:
+                  phase_ns: Optional[torch.Tensor] = None,
+                  scratch: bool = False) -> Dict[str, torch.Tensor]:
     """The greedy decode: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. `greedy_decode.launches` counts kernel
     launches. `phase_ns`, an int64 CUDA tensor of 7 zeros, receives the
-    kernel's time in each of its seven phases, summed over the steps."""
+    kernel's time in each of its seven phases, summed over the steps.
+    `scratch` adds the last step's intermediates (SCRATCH_NAMES), to
+    hold each phase against the plain version's."""
     if fused.device.type == "cpu":
-        return greedy_decode_plain(w, cfg, policy, fused, feats)
+        return greedy_decode_plain(w, cfg, policy, fused, feats, scratch)
     if fused.device.type != "cuda":
         raise ValueError(f"greedy_decode: no kernel for {fused.device}")
-    return _launch(w, cfg, policy, fused, feats, phase_ns)
+    return _launch(w, cfg, policy, fused, feats, phase_ns, scratch)
 
 
 greedy_decode.launches = 0
 greedy_decode.last_grid = 0       # blocks of the last launch
 
 
-def _launch(w, cfg, policy, fused, feats, phase_ns):
-    from ekaid_torch import kernels
+#: the weight of each product of each kind, in product order
+PRODUCT_WEIGHTS = {MOD: ("wih_mod", "whh_mod"), VPOS: ("wpos1",),
+                   ZX: ("wih_x",), ZH: ("whh_lang",), G1: ("wg1",),
+                   G2: ("wg2",), LANG: ("wih_a",), LOGIT: ("wlogit",)}
+
+
+def pack_weight(w: torch.Tensor, job: Job) -> torch.Tensor:
+    """A product weight [K, N] packed for the kernel, tile-major: [ntiles,
+    K, nu] with packed[t, k, j] = w[k, job.columns(t)[j]], zero where the
+    tile column is padding. A unit's K-slice of a tile is then one
+    contiguous slab."""
+    cols = [[c if c is not None else 0 for c in job.columns(t)]
+            for t in range(job.ntiles)]
+    valid = [[c is not None for c in job.columns(t)]
+             for t in range(job.ntiles)]
+    idx = torch.tensor(cols, device=w.device)
+    mask = torch.tensor(valid, device=w.device)
+    return (w[:, idx] * mask.to(w.dtype)).permute(1, 0, 2).contiguous()
+
+
+#: (source tensors, their versions and tile widths, packed), newest last
+_packed: List[tuple] = []
+
+
+def _packed_weights(w, plan: DecodePlan) -> Dict[str, torch.Tensor]:
+    """The product weights packed for `plan`, made once per parameter set
+    and tile widths (the last few kept). An entry holds its source
+    tensors and is found only for those same tensors, unchanged since:
+    another set cannot take their addresses while the entry lives."""
+    jobs = {j.kind: j for js in plan.phases for j in js}
+    names = [(n, kind) for kind, ns in PRODUCT_WEIGHTS.items() for n in ns]
+    src = tuple(w[n] for n, _ in names)
+    key = tuple((x._version, jobs[kind].nu) for x, (_, kind) in zip(src,
+                                                                       names))
+    for held, k, packed in _packed:
+        if k == key and all(a is b for a, b in zip(held, src)):
+            return packed
+    with torch.no_grad():
+        packed = {n: pack_weight(w[n], jobs[kind]) for n, kind in names}
+    _packed.append((src, key, packed))
+    del _packed[:-4]
+    return packed
+
+
+_plans: Dict[tuple, tuple] = {}
+
+
+def _device_plan(dims: tuple, dev: torch.device) -> tuple:
+    """decode_plan for the card's SM count, and its int32 copy on `dev`
+    (made once per shape and device)."""
+    key = (dims, str(dev))
+    if key not in _plans:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = decode_plan(*dims[:-1], sms=sms, itemsize=dims[-1])
+        _plans[key] = plan, torch.tensor(plan.array(), dtype=torch.int32,
+                                         device=dev)
+    return _plans[key]
+
+
+def _check_inputs(w, cfg, policy, fused, feats):
+    """The shapes, dtypes and devices the kernel takes; returns the plan's
+    dims (B, E, R, D, W, V, P)."""
     _check_knobs(cfg)
     dt = policy.compute_dtype
-    codes = {torch.float32: 0, torch.bfloat16: 1}
-    if dt not in codes:
+    if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"greedy_decode kernel: no {dt} instance")
     B, E = fused.shape
-    T, R, D = cfg.seq_length, cfg.rnn_size, cfg.input_dim
+    R, D = cfg.rnn_size, cfg.input_dim
     W, V, P = cfg.word_embed_size, cfg.vocab_size, cfg.pos_classes
     shapes = {
         "wemb": (V, W), "wih_mod": (E + R, 4 * R), "whh_mod": (R, 4 * R),
@@ -175,9 +455,8 @@ def _launch(w, cfg, policy, fused, feats, phase_ns):
         "wg2": (2 * R + D, D), "bg2": (D,), "wih_x": (W, 4 * R),
         "wih_a": (D, 4 * R), "whh_lang": (R, 4 * R), "b_lang": (4 * R,),
         "wlogit": (R, V), "blogit": (V,)}
-    feats2d = feats.reshape(B, 3 * D)
     named = [(k, w[k], shapes[k]) for k in WEIGHT_NAMES]
-    named += [("fused", fused, (B, E)), ("feats", feats2d, (B, 3 * D))]
+    named += [("fused", fused, (B, E)), ("feats", feats, (B, 3, D))]
     for name, x, shape in named:
         if x.device != fused.device or x.dtype != dt:
             raise ValueError(f"greedy_decode: {name} is {x.dtype} on "
@@ -185,44 +464,69 @@ def _launch(w, cfg, policy, fused, feats, phase_ns):
         if tuple(x.shape) != shape or not x.is_contiguous():
             raise ValueError(f"greedy_decode: {name} has shape "
                              f"{tuple(x.shape)}, want contiguous {shape}")
+    return B, E, R, D, W, V, P
 
-    dev = fused.device
+
+def _launch(w, cfg, policy, fused, feats, phase_ns, scratch=False):
+    from ekaid_torch import kernels
+    dims = _check_inputs(w, cfg, policy, fused, feats)
+    B, E, R, D, W, V, P = dims
+    T, dt, dev = cfg.seq_length, policy.compute_dtype, fused.device
+    if phase_ns is not None and (phase_ns.shape != (7,) or phase_ns.dtype
+                                 != torch.int64 or phase_ns.device != dev):
+        raise ValueError("phase_ns must be an int64 [7] tensor on the "
+                         "decode's device")
+    plan, plan_dev = _device_plan(dims + (dt.itemsize,), dev)
     seq = torch.zeros(B, T, dtype=torch.int32, device=dev)
     lps = torch.zeros(B, T, dtype=torch.float32, device=dev)
     mws = torch.zeros(B, T, 3, dtype=torch.float32, device=dev)
     state = [torch.zeros(n, dtype=dt, device=dev) for n in (
         2 * B * R, B * R, B * R, B * R)]           # h_mod x2, c_mod, h, c
-    work = [torch.empty(n, dtype=dt, device=dev) for n in (
-        B * R, B * 4 * R, B * 4 * R, B * D, B * R, B * (2 * R + D), B * D)]
+    # vpos, zx, zh, att, ppos, gate_h, ga
+    work = [torch.empty(B, n, dtype=dt, device=dev) for n in (
+        R, 4 * R, 4 * R, D, R, 2 * R + D, D)]
     mw = torch.empty(B * 3, dtype=torch.float32, device=dev)
-    logits = torch.empty(B * V, dtype=torch.float32, device=dev)
+    logits = torch.empty(B, V, dtype=torch.float32, device=dev)
     tok = torch.full((B,), cfg.bos_token, dtype=torch.int32, device=dev)
     unfin = torch.ones(B, dtype=torch.int32, device=dev)
     counts = torch.zeros(T, dtype=torch.int32, device=dev)
-    bufs = ([x for _, x, _ in named] + [seq, lps, mws] + state + work
-            + [mw, logits, tok, unfin, counts])
-    if phase_ns is not None and (phase_ns.shape != (7,) or phase_ns.dtype
-                                 != torch.int64 or phase_ns.device != dev):
-        raise ValueError("phase_ns must be an int64 [7] tensor on the "
-                         "decode's device")
+    part = torch.empty(plan.part_floats, dtype=torch.float32, device=dev)
+    tickets = torch.zeros(plan.tickets, dtype=torch.int32, device=dev)
+    # the products read their weights packed tile-major
+    packed = _packed_weights(w, plan)
+    bufs = ([packed.get(k, w[k]) for k in WEIGHT_NAMES]
+            + [fused, feats, seq, lps, mws]
+            + state + work + [mw, logits, tok, unfin, counts, plan_dev,
+                              part, tickets])
     ptrs = (ctypes.c_void_p * (len(bufs) + 1))(
         *[x.data_ptr() for x in bufs],
         None if phase_ns is None else phase_ns.data_ptr())
-    dims = (ctypes.c_int * 9)(B, T, E, R, D, W, V, P,
-                              int(bool(cfg.decoding_constraint)))
+    dims_c = (ctypes.c_int * 13)(
+        B, T, E, R, D, W, V, P, int(bool(cfg.decoding_constraint)),
+        plan.bu_pad, plan.groups, plan.lda, plan.smem)
     grid = ctypes.c_int(0)
     lib = kernels.load("greedy_decode")
     if (lib.ekaid_num_pointer_slots(), lib.ekaid_num_dims()) != (
-            len(ptrs), len(dims)):
+            len(ptrs), len(dims_c)):
         raise RuntimeError("greedy_decode: the library's argument layout "
                            "differs from this wrapper's; rebuild it")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ekaid_greedy_decode(
-            codes[dt], ctypes.cast(ptrs, ctypes.c_void_p),
-            ctypes.cast(dims, ctypes.c_void_p), stream,
+            {torch.float32: 0, torch.bfloat16: 1}[dt],
+            ctypes.cast(ptrs, ctypes.c_void_p),
+            ctypes.cast(dims_c, ctypes.c_void_p), stream,
             ctypes.addressof(grid))
     kernels.check(lib, err, "greedy_decode kernel launch")
     greedy_decode.launches += 1
     greedy_decode.last_grid = grid.value
-    return {"seq": seq, "logprobs": lps, "module_weights": mws}
+    out = {"seq": seq, "logprobs": lps, "module_weights": mws}
+    if scratch:
+        # the step that ran last wrote h_mod's buffer (steps run) % 2
+        live = (counts > 0).int().cumprod(0).sum().item()
+        ran = min(T, live + 1)
+        out.update(zip(("vpos", "zx", "zh"), work[:3]))
+        out.update(gate_h=work[5], ga=work[6], logits=logits,
+                   h_mod=state[0].view(2, B, R)[ran % 2],
+                   h_lang=state[2].view(B, R))
+    return out
