@@ -17,7 +17,10 @@ Phases, each fatal on failure:
      run in a fixed order); one-step decodes (`scratch=True`) whose
      per-phase intermediates are held against the plain version's:
      f32 within 1e-5 of each tensor's largest magnitude, bf16 gaps in
-     ulps recorded, zx and h_mod within 2 ulps;
+     ulps recorded, zx and h_mod within 2 ulps; records, not gates, on
+     ROLLED_SETS more bf16 parameter sets: K1's step-0 gap to the plain
+     version beside the CPU's plain version's, and for the largest gap
+     the one-step intermediates of both in ulps;
   4. the main path: an `EkaidModel` at flagship width under the bf16
      policy behind the batch-1 `InferenceEngine`, answering questions
      over the synthetic pair store, then one batch-64 decode; the
@@ -25,21 +28,28 @@ Phases, each fatal on failure:
      answer is held against the plain version on the same inputs;
   5. timings of the kernel, its plain version, its bound, the batch-64
      decode and the batch-1 answer;
-  6. the ROIAlign kernels K2 (canvas) and K3 (patch) against their
-     plain versions on the pyramid and proposals of a flagship
-     extraction batch (8 synthetic uint8 1024^2 images, the anatomy
-     detector with random weights from the seed), with an elongated ROI
-     that takes the level bump, at 1000 and 997 ROIs per image: f32 max
-     abs error <= 1e-5, bf16 within one bf16 ulp (equal share recorded);
+  6. the ROIAlign kernels K2 (canvas) and K3 (patch), which compute the
+     ROI geometry themselves: on the card, x / d for a Python scalar
+     against a 0-d tensor (recorded); each instance's geometry (image,
+     level, 8 patch floats) bit-equal to `_roi_geometry` on the card, on
+     the batch below and on ROIs within BOUNDARY_ULPS of every level
+     boundary, and the ROIs whose plain geometry differs between the
+     card and the CPU (recorded); then K2 and K3 against their plain
+     versions on the pyramid and proposals of a flagship extraction
+     batch (8 synthetic uint8 1024^2 images, the anatomy detector with
+     random weights from the seed), with an elongated ROI that takes the
+     level bump, at 1000 and 997 ROIs per image: f32 max abs error <=
+     1e-5, bf16 within one bf16 ulp (equal share recorded);
   7. the extraction path: `extract.runner.build_detector_fns` +
      `Extractor` over 3 batches of 8 at 1024^2, bf16, records written
      to an in-memory sink; every record is checked, and K2 must launch
      twice a batch (anatomy + disease detector); then one batch with
      roi_backend 'pallas', where K3 must launch twice;
   8. timings: K2 and K3 per call (CUDA events around the launch alone,
-     the profiler's device time, the whole wrapper with its geometry,
-     the launch on f32 maps) beside their plain versions and their
-     bounds from the map positions these ROIs read, extraction images/s
+     warm and with the L2 flushed, the profiler's device time, the whole
+     wrapper, the launch on f32 maps) beside their plain versions, their
+     bounds from the map positions these ROIs read, the bytes their taps
+     move through L1/L2 and their resident warps per SM, extraction images/s
      end to end (host clock, records fetched), backbone ms per batch
      and a per-stage breakdown;
   9. greedy NMS: the kernel K4 against its plain version and the
@@ -91,10 +101,13 @@ BF16_BATCHES = BATCHES + (BF16_GROUPS_B,)
 # magnitude; bf16 zx and h_mod, whose step-0 inputs are equal in both
 ONE_STEP_F32 = 1e-5
 BF16_STEP0_ULPS = 2
+ROLLED_SETS = 8                    # K1's bf16 records on other weights
 ROI_F32_GATE = 1e-5                # K2/K3 vs plain, f32 max abs error
 EXTRACT_BATCHES = 3
 # ROIs whose long side takes the level bump (on a 1024^2 image)
 ELONGATED_ROIS = ((0.0, 300.0, 1000.0, 350.0), (100.0, 0.0, 160.0, 900.0))
+# the boundary ROIs' distance from each level boundary, in f32 ulps
+BOUNDARY_ULPS = 8
 # K4's IoU pass, f32 operations per live row and step: iw and ih (min,
 # max, subtract, clamp each), the product, the union (add, subtract),
 # the quotient, the threshold test and the arg-max comparison
@@ -124,6 +137,25 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_l2_ms(fn, reps: int) -> float:
+    """Mean time of `fn` by CUDA events around each call, with the 50 MB
+    L2 flushed before it (a 128 MB buffer written)."""
+    import torch
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    ts = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        ts.append(start.elapsed_time(end))
+    return statistics.mean(ts)
 
 
 def profiler_kernel_ms(fn, kernel_name: str, reps: int = 10):
@@ -193,6 +225,84 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+def boundary_rois(n_ulps: int = BOUNDARY_ULPS, scale0: float = 0.25):
+    """f32 boxes [N, 4] at the level boundaries of the ROI geometry, and
+    up to `n_ulps` f32 ulps either side: squares whose sqrt(area) is 112,
+    224 or 448 px (levels 3, 4, 5 begin there), at the origin and
+    offset, and thin boxes whose long side x `scale0` is 44 * 2^k px,
+    k = 0..2 (the elongated-ROI bump begins there), lying and standing."""
+    import numpy as np
+    f32 = np.float32
+
+    def around(v):
+        bits = np.array([v], f32).view(np.int32)
+        return (bits + np.arange(-n_ulps, n_ulps + 1, dtype=np.int32)
+                ).view(f32)
+
+    boxes = []
+    for side in (112.0, 224.0, 448.0):
+        for w in around(side):
+            boxes += [[0, 0, w, w], [16, 8, f32(16) + w, f32(8) + w]]
+    for k in range(3):
+        for ls in around(44.0 * 2.0 ** k / scale0):
+            boxes += [[0, 300, ls, 310], [5, 0, 15, ls]]
+    return np.array(boxes, f32)
+
+
+def roi_geometry_checks(rec: dict, fm16, rois) -> None:
+    """Phase 6's geometry: how the card divides by a Python scalar
+    (recorded), the kernel's geometry against `_roi_geometry` on the card
+    bit for bit (gated) on the batch's ROIs and the boundary set, and
+    the ROIs whose plain geometry differs between the card and the CPU
+    (recorded)."""
+    import torch
+    from ekaid_torch.models.detector.faster_rcnn import FPN_SCALES
+    from ekaid_torch.ops import roi_kernels as rk
+    dev = rois.device
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.rand(2_000_000, generator=g, device=dev) * 1024
+    xc = x.cpu()
+    rec["scalar_division"] = {
+        str(d): {"scalar_vs_0d": int((x / d != x / torch.tensor(
+                     d, device=dev)).sum()),
+                 "0d_vs_cpu": int((x / torch.tensor(d, device=dev)).cpu()
+                                  .ne(xc / d).sum())}
+        for d in (7.0, 44.0, 224.0)}
+    log(f"  x / d on the card, 2M f32 values, elements where the Python "
+        f"scalar's quotient differs from the 0-d tensor's, and the 0-d "
+        f"tensor's from the CPU's: {rec['scalar_division']}")
+    sets = {"batch": (fm16, rois),
+            "boundary": ([f[:1] for f in fm16], torch.as_tensor(
+                boundary_rois(), device=dev)[None])}
+    r = rec["roi_geometry"] = {}
+    for what, (fms, rr) in sets.items():
+        _, _, _, _, _, img, lvl, fmeta = rk._prepare(fms, rr, FPN_SCALES,
+                                                     7, 2, 2)
+        for round_a in (True, False):
+            k_img, k_lvl, k_fmeta = rk.kernel_geometry(
+                fms, rr, FPN_SCALES, round_a=round_a)
+            torch.cuda.synchronize()
+            if not (torch.equal(k_img, img) and torch.equal(k_lvl, lvl)
+                    and torch.equal(k_fmeta.view(torch.int32),
+                                    fmeta.view(torch.int32))):
+                bad = ((k_lvl != lvl) | (k_fmeta.view(torch.int32)
+                       != fmeta.view(torch.int32)).any(1)).sum().item()
+                raise AssertionError(f"kernel geometry ({what}, round_a "
+                                     f"{round_a}) differs from "
+                                     f"_roi_geometry on {bad} ROIs")
+        _, _, _, _, _, _, c_lvl, c_fmeta = rk._prepare(
+            [f.cpu() for f in fms], rr.cpu(), FPN_SCALES, 7, 2, 2)
+        r[what] = {"rois": int(lvl.numel()),
+                   "levels": torch.bincount(lvl, minlength=4).tolist(),
+                   "card_vs_cpu_differ": int(
+                       ((c_lvl != lvl.cpu())
+                        | (c_fmeta.view(torch.int32)
+                           != fmeta.cpu().view(torch.int32)).any(1)).sum())}
+    log(f"  kernel geometry == _roi_geometry on the card, bit for bit (K2 "
+        f"and K3 instances): {r}; card_vs_cpu_differ counts ROIs whose "
+        "plain geometry differs between the card and the CPU")
+
+
 def roi_bound(fmaps, rois, scales, out_size: int = 7, s: int = 2) -> dict:
     """The least time of one ROIAlign call on these inputs: the map
     positions these ROIs read (those with a non-zero row and column tap,
@@ -234,11 +344,16 @@ def roi_bound(fmaps, rois, scales, out_size: int = 7, s: int = 2) -> dict:
     nbytes = n_pos * C * esize + rois.numel() * 4 + out_bytes
     peak = PEAK_OPS["bfloat16" if esize == 2 else "float32"]
     ops_ms, bytes_ms = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    # what the kernel moves through L1/L2: every tap of every bin reads
+    # all C channels of its position, and the output is written once
+    tap_bytes = float((ny * nx).sum()) * C * esize
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
             "read_mb": n_pos * C * esize / 1e6,
             "out_mb": out_bytes / 1e6,
+            "tap_mb": tap_bytes / 1e6,
+            "l1l2_mb": (tap_bytes + out_bytes) / 1e6,
             "pyramid_mb": sum(f.numel() for f in fmaps) * esize / 1e6}
 
 
@@ -321,6 +436,7 @@ def extraction(rec: dict, cfg=None, device: str = "cuda") -> list:
              "roi_align_patch": (rk.multilevel_roi_align_pallas,
                                  rk.multilevel_roi_align_pallas_plain)}
     rec["roi"] = {}
+    roi_geometry_checks(rec, fm16, rois)
     for name, (fn, plain) in pairs.items():
         r = rec["roi"][name] = {"f32_max_abs_err": 0.0}
         # and a ROI count per image that is not a multiple of 8
@@ -402,19 +518,23 @@ def extraction(rec: dict, cfg=None, device: str = "cuda") -> list:
         round_a = name == "roi_align_canvas"
 
         def launch_alone(fmaps, round_a):
-            """The ctypes launch alone, geometry and output made before."""
-            fms, _, _, _, hs, meta, fmeta = rk._kernel_inputs(
-                fmaps, rois, FPN_SCALES, 7, 2, 2)
-            out = torch.empty(meta.shape[0], 7, 7, fms[0].shape[-1],
-                              dtype=fms[0].dtype, device=dev)
-            return lambda: rk._kernel_launch(fms, hs, meta, fmeta, out, 2,
-                                             round_a)
+            """The ctypes launch alone, arguments and output made before."""
+            args = rk._kernel_args(fmaps, rois, FPN_SCALES, 7, 2, 2)
+            out = torch.empty(args.rois.shape[0], 7, 7,
+                              args.fmaps[0].shape[-1],
+                              dtype=args.fmaps[0].dtype, device=dev)
+            return lambda: rk._kernel_launch(args, out, 2, round_a)
 
         alone16 = launch_alone(fm16, round_a)
         alone32 = launch_alone(fm32, round_a)
-        runs = {"plain": [], "wrapper": [], "kernel": [], "kernel_f32": []}
-        for which in ("plain", "wrapper", "kernel", "kernel_f32",
-                      "kernel_f32", "kernel", "wrapper", "plain"):
+        runs = {"plain": [], "wrapper": [], "kernel": [], "kernel_cold": [],
+                "kernel_f32": []}
+        for which in ("plain", "wrapper", "kernel", "kernel_cold",
+                      "kernel_f32", "kernel_f32", "kernel_cold", "kernel",
+                      "wrapper", "plain"):
+            if which == "kernel_cold":
+                runs[which].append(cold_l2_ms(alone16, 10))
+                continue
             f = {"plain": lambda: plain(fm16, rois, FPN_SCALES),
                  "wrapper": lambda: fn(fm16, rois, FPN_SCALES),
                  "kernel": alone16, "kernel_f32": alone32}[which]
@@ -423,22 +543,33 @@ def extraction(rec: dict, cfg=None, device: str = "cuda") -> list:
         b32 = roi_bound(fm32, rois, FPN_SCALES)
         r = rec["roi"][name]
         r.update(b, ms=statistics.mean(runs["kernel"]),
+                 cold_ms=statistics.mean(runs["kernel_cold"]),
                  wrapper_ms=statistics.mean(runs["wrapper"]),
                  f32_ms=statistics.mean(runs["kernel_f32"]),
-                 f32_bound_ms=b32["bound_ms"],
+                 f32_bound_ms=b32["bound_ms"], f32_l1l2_mb=b32["l1l2_mb"],
                  plain_ms=statistics.mean(runs["plain"]),
                  profiler_kernel_ms=profiler_kernel_ms(alone16,
                                                        "roi_align_kernel"),
                  runs=runs)
+        r["warps_per_sm"] = {
+            dt: rk.resident_warps_per_sm(getattr(torch, dt), round_a)
+            for dt in ("bfloat16", "float32")}
+        r["l1l2_tb_per_s"] = b["l1l2_mb"] / r["ms"] / 1e3     # MB/ms=GB/s
+        r["f32_l1l2_tb_per_s"] = b32["l1l2_mb"] / r["f32_ms"] / 1e3
         log(f"[8] {name} bf16 {tuple(rois.shape)}: launch alone "
-            f"{r['ms']:.3f} ms (runs {['%.3f' % v for v in runs['kernel']]}"
-            f"; profiler's device time {r['profiler_kernel_ms']}), whole "
-            f"wrapper {r['wrapper_ms']:.3f} ms, f32 maps {r['f32_ms']:.3f} "
-            f"ms (bound {b32['bound_ms']:.4f}); plain {r['plain_ms']:.1f} "
-            f"ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+            f"{r['ms']:.4f} ms (runs {['%.4f' % v for v in runs['kernel']]}"
+            f"; profiler's device time {r['profiler_kernel_ms']}), L2 "
+            f"flushed {r['cold_ms']:.4f} ms, whole wrapper "
+            f"{r['wrapper_ms']:.4f} ms, f32 maps {r['f32_ms']:.4f} ms "
+            f"(bound {b32['bound_ms']:.4f}); plain {r['plain_ms']:.1f} ms; "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
             f"{b['read_mb']:.1f} MB of the {b['pyramid_mb']:.1f} MB "
             f"pyramid read, {b['out_mb']:.1f} MB written, at 3.35 TB/s; "
-            f"{b['gflop']:.2f} GFLOP)")
+            f"{b['gflop']:.2f} GFLOP); through L1/L2 {b['l1l2_mb']:.1f} MB "
+            f"({b['tap_mb']:.1f} MB of taps + the output), "
+            f"{r['l1l2_tb_per_s']:.2f} TB/s (f32 {b32['l1l2_mb']:.1f} MB, "
+            f"{r['f32_l1l2_tb_per_s']:.2f} TB/s); resident warps per SM "
+            f"{r['warps_per_sm']}")
         entries.append({
             "name": name, "route": "cuda",
             "source": "ekaid_torch/csrc/roi_align.cu",
@@ -757,6 +888,74 @@ def one_step(rec: dict, w32, w16, sp, fx32, fx16) -> None:
         f"{BF16_STEP0_ULPS}")
 
 
+def rolled_sets_record(rec: dict, w16, sp, fused16, feats16) -> None:
+    """Records, not gates: K1 at bf16 on ROLLED_SETS parameter sets (the
+    product weights rolled by 1..ROLLED_SETS rows) against its plain
+    version on the card (step-0 max |logprob gap|, step-0 tokens equal,
+    share of equal tokens), beside the plain version on the CPU against
+    the one on the card (step 0: the same rounding points, f32 sums in
+    another order). Then, for the set with the largest step-0 gap, the
+    one-step intermediates of K1 and of the CPU's plain version against
+    the card's plain version, in bf16 ulps, and the first of them (in
+    phase order) more than BF16_STEP0_ULPS off."""
+    import torch
+    from ekaid_torch.models.greedy_decode import (
+        PRODUCT_WEIGHTS, SCRATCH_NAMES, greedy_decode, greedy_decode_plain)
+    from ekaid_torch.utils.dtypes import BF16
+    products = {n for names in PRODUCT_WEIGHTS.values() for n in names}
+    sp1 = sp.replace(seq_length=1)
+    cpu_in = (fused16.cpu(), feats16.cpu())
+    r = rec["rolled_sets"] = {"sets": []}
+    worst, worst_gap = None, -1.0
+    for shift in range(1, ROLLED_SETS + 1):
+        w = {k: v.roll(shift, 0).contiguous() if k in products else v
+             for k, v in w16.items()}
+        out = greedy_decode(w, sp, BF16, fused16, feats16)
+        ref = greedy_decode_plain(w, sp, BF16, fused16, feats16)
+        cpu = greedy_decode_plain({k: v.cpu() for k, v in w.items()}, sp1,
+                                  BF16, *cpu_in)
+        torch.cuda.synchronize()
+        e = {"shift": shift,
+             "step0_lp_gap": (out["logprobs"][:, 0]
+                              - ref["logprobs"][:, 0]).abs().max().item(),
+             "step0_tokens_equal": bool(torch.equal(out["seq"][:, 0],
+                                                    ref["seq"][:, 0])),
+             "token_share": (out["seq"] == ref["seq"]).float().mean().item(),
+             "cpu_plain_step0_lp_gap": (cpu["logprobs"][:, 0] - ref[
+                 "logprobs"][:, 0].cpu()).abs().max().item(),
+             "cpu_plain_step0_tokens_equal": bool(torch.equal(
+                 cpu["seq"][:, 0], ref["seq"][:, 0].cpu()))}
+        r["sets"].append(e)
+        if e["step0_lp_gap"] > worst_gap:
+            worst, worst_gap = (shift, w), e["step0_lp_gap"]
+        log(f"  record: rolled set {shift}, bf16 B={fused16.shape[0]}: K1 vs "
+            f"plain step-0 gap {e['step0_lp_gap']:.3g}, step-0 tokens equal "
+            f"{e['step0_tokens_equal']}, tokens equal "
+            f"{e['token_share']:.4f}; CPU plain vs card plain step-0 gap "
+            f"{e['cpu_plain_step0_lp_gap']:.3g}, tokens equal "
+            f"{e['cpu_plain_step0_tokens_equal']}")
+    shift, w = worst
+    ref = greedy_decode_plain(w, sp1, BF16, fused16, feats16, scratch=True)
+    out = greedy_decode(w, sp1, BF16, fused16, feats16, scratch=True)
+    cpu = greedy_decode_plain({k: v.cpu() for k, v in w.items()}, sp1, BF16,
+                              *cpu_in, scratch=True)
+    torch.cuda.synchronize()
+    trace = {"shift": shift}
+    for who, got in (("kernel", out), ("cpu_plain", cpu)):
+        ulps = {k: bf16_gap_ulps(ref[k].cpu(), got[k].cpu())
+                for k in SCRATCH_NAMES}
+        first = next((k for k in SCRATCH_NAMES
+                      if ulps[k]["max_ulps"] > BF16_STEP0_ULPS), None)
+        trace[who] = {"ulps": ulps, "first_over": first}
+        log(f"  record: rolled set {shift} (largest step-0 gap), one step, "
+            f"{who} vs the card's plain version, max bf16 ulps (bit-equal "
+            f"share): " + ", ".join(
+                f"{k} {v['max_ulps']:.3g} ({v['equal_share']:.4f})"
+                for k, v in ulps.items())
+            + f"; first over {BF16_STEP0_ULPS} ulps: {first}")
+    r["worst"] = trace
+
+
 def k1_phase(rec: dict, cfg):
     """Phase 3: K1 against its plain version at flagship width. Returns
     the bf16 model, the B=64 batch, its bf16 decode inputs, weights and
@@ -856,6 +1055,7 @@ def k1_phase(rec: dict, cfg):
     log(f"  bf16 B={B}: a second decode, after two other parameter sets, "
         "is bit-equal (seq, logprobs, module_weights)")
     one_step(rec, w32, w16, sp, (fused, feats), (fused16, feats16))
+    rolled_sets_record(rec, w16, sp, fused16, feats16)
     return m16, batch, fused16, feats16, w16, out16
 
 

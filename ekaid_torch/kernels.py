@@ -36,10 +36,10 @@ _I, _P = ctypes.c_int, ctypes.c_void_p
 # error code (int)
 ENTRY = {
     "greedy_decode": ("ekaid_greedy_decode", [_I, _P, _P, _P, _P]),
-    # dtype, round_a, level ptrs, heights, levels, meta, fmeta, out, n, C,
-    # out_size, sampling ratio, stream
-    "roi_align": ("ekaid_roi_align", [_I, _I, _P, _P, _I, _P, _P, _P,
-                                      _I, _I, _I, _I, _P]),
+    # dtype, round_a, level table, rois, n, rois per image, out, C,
+    # out_size, sampling ratio, geometry (or null), stream
+    "roi_align": ("ekaid_roi_align", [_I, _I, _P, _P, _I, _I, _P, _I, _I,
+                                      _I, _P, _P]),
     # boxes, scores, iou threshold, indices, valid, images, rows, slots,
     # stream
     "nms": ("ekaid_nms", [_P, _P, ctypes.c_float, _P, _P, _I, _I, _I, _P]),

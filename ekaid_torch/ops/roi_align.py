@@ -71,6 +71,22 @@ def roi_align(fmap: torch.Tensor, rois: torch.Tensor, spatial_scale: float,
     return vals.mean(dim=(2, 4))
 
 
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d rounded once, on every device. (On CUDA, PyTorch divides by
+    a Python scalar as a product with the scalar's f32 reciprocal, which
+    can differ by an ulp; a 0-d tensor on x's device is divided.)"""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+
+
+def log2_f32(x: torch.Tensor) -> torch.Tensor:
+    """log2 of an f32 tensor, computed in double and rounded once to f32:
+    the correctly rounded value but for ties of vanishing rarity, so the
+    CPU, the card and the ROIAlign kernel (`csrc/roi_align.cu`) agree bit
+    for bit. torch's f32 log2 and CUDA's log2f are each within an ulp,
+    but not the same ulp, and a level flips on that ulp at a boundary."""
+    return torch.log2(x.double()).float()
+
+
 def assign_levels(rois: torch.Tensor, min_level: int = 2,
                   max_level: int = 5, canonical_size: float = 224.0,
                   canonical_level: int = 4) -> torch.Tensor:
@@ -79,8 +95,8 @@ def assign_levels(rois: torch.Tensor, min_level: int = 2,
     h = torch.clamp(rois[:, 3] - rois[:, 1], min=0.0)
     size = torch.sqrt(w * h)
     lvl = torch.floor(canonical_level
-                      + torch.log2(torch.clamp(size, min=1e-6)
-                                   / canonical_size))
+                      + log2_f32(true_div(torch.clamp(size, min=1e-6),
+                                          canonical_size)))
     return torch.clamp(lvl, min_level, max_level).to(torch.int32)
 
 
