@@ -52,20 +52,30 @@ Phases, each fatal on failure:
      move through L1/L2 and their resident warps per SM, extraction images/s
      end to end (host clock, records fetched), backbone ms per batch
      and a per-stage breakdown;
-  9. greedy NMS: the kernel K4 against its plain version and the
-     blocked NMS (`ops/nms.py::nms`) at f32, selections equal in order,
-     at the bench geometry (8 images x 1000 boxes, 100 slots, IoU 0.5),
-     on a hard set (ties, duplicate, zero-area and inverted boxes,
-     padding rows, an image with nothing live, more slots than live
-     rows, R not a multiple of 32, B=1) and at the extraction geometry
+  9. greedy NMS: K4 (one call: the order kernel, then mask and scan in
+     one cooperative kernel) against its plain version, the blocked NMS
+     (`ops/nms.py::nms`) and the bitmask model (`nms_bitmask_plain`) at
+     f32, selections equal in order, both as the path calls it (the
+     mask built only as far as the walk needs) and with the whole mask
+     built, and then K4's debug output (the order, L, the mask words it
+     writes, rows walked, chunks, picks) bit-equal to the model's: at
+     the bench geometry (8 images x 1000 boxes, 100 slots, IoU 0.5), on
+     a hard set (ties, duplicate, zero-area and inverted boxes, padding
+     rows, an image with nothing live, more slots than live rows, R not
+     a multiple of 32, B=1), at R = MAX_ROWS, at the extraction geometry
      (the level-offset proposals that `generate_proposals` hands to
      `batched_nms` on a flagship batch: 4,768 rows an image, IoU 0.7,
-     1000 slots); then the NMS A/B entry point
-     (`ekaid_torch.scripts.bench_nms`) through its `main`, where K4
-     must launch once a call; then times at both geometries (K4's
-     launch alone by CUDA events and by torch.profiler, the plain
-     version, the blocked NMS with its host reads) beside K4's bound
-     and its serial depth.
+     1000 slots) and on an edge set (-0.0 / 0.0 ties, NaN scores, one
+     box repeated, IoU 0 and -0.1, more slots than live rows, R of 1,
+     63, 64, 65, 1000); two calls bit-equal; then the NMS A/B entry
+     point (`ekaid_torch.scripts.bench_nms`) through its `main`, where
+     K4 must be called once a call; then times at both geometries (K4's
+     call alone by CUDA events, warm and L2-flushed, and by
+     torch.profiler, summed and by kernel, with its kernels a call; the
+     wrapper; the plain version; the blocked NMS with its host reads)
+     beside K4's bound, the design's own work (pairs, dividing pairs,
+     mask bytes, mask tiles built) and the rows and chunks the scan
+     walked.
 Prints one `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}, after a `record:` line with every number
 as JSON. Without a CUDA device, or outside the repository, it exits
@@ -158,10 +168,10 @@ def cold_l2_ms(fn, reps: int) -> float:
     return statistics.mean(ts)
 
 
-def profiler_kernel_ms(fn, kernel_name: str, reps: int = 10):
-    """Device time per call of the CUDA kernels whose name holds
-    `kernel_name`, from a torch.profiler trace of `reps` calls of `fn`;
-    None where the trace shows no device time for them."""
+def profiler_kernels(fn, stem: str, reps: int = 10) -> dict:
+    """For each CUDA kernel whose name holds `stem`: its device ms and its
+    launches per call of `fn`, from a torch.profiler trace of `reps`
+    calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -170,12 +180,22 @@ def profiler_kernel_ms(fn, kernel_name: str, reps: int = 10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
+    out = {}
     for e in prof.key_averages():
-        if kernel_name in e.key:
-            us += (getattr(e, "device_time_total", 0)
-                   or getattr(e, "cuda_time_total", 0))
-    return us / reps / 1e3 if us else None
+        if stem in e.key:
+            us = (getattr(e, "device_time_total", 0)
+                  or getattr(e, "cuda_time_total", 0))
+            out[e.key] = {"ms": us / reps / 1e3, "launches": e.count / reps}
+    return out
+
+
+def profiler_kernel_ms(fn, kernel_name: str, reps: int = 10):
+    """Device time per call of the CUDA kernels whose name holds
+    `kernel_name`, summed, from a torch.profiler trace of `reps` calls of
+    `fn`; None where the trace shows no device time for them."""
+    ms = sum(k["ms"] for k in profiler_kernels(fn, kernel_name,
+                                               reps).values())
+    return ms or None
 
 
 def steps_run(seq) -> int:
@@ -660,6 +680,44 @@ def nms_hard_set():
             ("hard set B=1", boxes[5:], scores[5:], 0.5, 100)]
 
 
+def nms_edge_set():
+    """(name, boxes [B, R, 4], scores [B, R], iou, max_out) cases, numpy
+    f32, for the bitmask order and scan: -0.0 / 0.0 ties, NaN scores,
+    every row the same box, IoU 0 and -0.1, more slots than live rows, and
+    R of 1, 63, 64, 65 and 1000 (a word's edges)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 11)
+    b, r = 3, 130
+
+    def boxes_of(shape, lo=100, hi=400):
+        c = rng.uniform(lo, hi, (*shape, 2))
+        s = rng.uniform(10, 150, (*shape, 2))
+        return np.concatenate([c - s / 2, c + s / 2], -1).astype(np.float32)
+
+    bx = boxes_of((b, r))
+    sc = rng.uniform(0, 1, (b, r)).astype(np.float32)
+    zeros = rng.choice(np.array([-0.0, 0.0, 0.5], np.float32), (b, r))
+    nan = sc.copy()
+    nan[rng.uniform(size=(b, r)) < 0.2] = np.nan
+    same = np.broadcast_to(np.array([[[50, 60, 150, 140]], [[70, 70, 70, 90]],
+                                     [[10, 10, 20, 20]]], np.float32),
+                           (b, r, 4)).copy()            # one box; zero area
+    tied = (rng.integers(1, 4, (b, r)) / 3).astype(np.float32)
+    padded = sc.copy()
+    padded[:, 70:] = -1e9                               # 70 live rows
+    cases = [("signed zeros", bx, zeros, 0.5, 40),
+             ("NaN scores", bx, nan, 0.5, 60),
+             ("one box", same, tied, 0.5, 20),
+             ("IoU 0", bx, sc, 0.0, 50),
+             ("IoU -0.1", bx, sc, -0.1, 10),
+             ("max_out > L", bx, padded, 0.5, 100)]
+    for rr in (1, 63, 64, 65, 1000):
+        cases.append((f"R={rr}", boxes_of((2, rr), 100, 900),
+                      rng.uniform(0, 1, (2, rr)).astype(np.float32), 0.5,
+                      100))
+    return cases
+
+
 def proposal_nms_inputs(cfg, dev):
     """The (boxes, scores, iou, max_out) that `generate_proposals` hands
     to the blocked NMS through `batched_nms` (level offsets added) on
@@ -716,10 +774,66 @@ def nms_bound(b: int, r: int, max_out: int, live_rows: int) -> dict:
             "mflop": ops / 1e6, "kbytes": nbytes / 1e3}
 
 
+def bitmask_same(got: dict, want: dict, what: str) -> None:
+    """K4's debug output bit-equal to `nms_bitmask_plain`'s: the order of
+    every row, L, the mask words the kernels write, and the scan's
+    counts."""
+    import torch
+    for k in ("order", "live", "walked", "chunks", "picks"):
+        if not torch.equal(got[k].long(), want[k].long()):
+            bad = (got[k].long() != want[k].long()).sum().item()
+            raise AssertionError(f"{what}: debug {k} differs in {bad} places")
+    written = written_words(want)
+    differ = (got["mask"] != want["mask"]) & written
+    if differ.any():
+        raise AssertionError(f"{what}: {differ.sum().item()} of "
+                             f"{written.sum().item()} mask words differ")
+
+
+def written_words(dbg: dict):
+    """bool [n, R, W]: the mask words K4 writes, from its debug output."""
+    from ekaid_torch.ops import nms_kernel as nk
+    return nk.mask_words_written(dbg["live"].long(), dbg["order"].shape[1])
+
+
+def bitmask_work(boxes, dbg: dict) -> dict:
+    """What the bitmask design computes on these inputs, beside the
+    function's least work: the upper-triangle pairs of live rows, those
+    whose intersection is not 0 (they take the division), the mask words
+    of the whole triangle and their bytes, and the words of the walked
+    rows up to the last walked chunk (the most the scan may read)."""
+    import torch
+    n, r = dbg["order"].shape
+    live = dbg["live"].long()
+    sb = torch.gather(boxes.reshape(n, r, 4), 1,
+                      dbg["order"].long()[..., None].expand(n, r, 4))
+    x1, y1, x2, y2 = sb.unbind(-1)
+    col = torch.arange(r, device=boxes.device)
+    dividing = 0
+    for s in range(0, r, 256):
+        k = col[s:s + 256, None]
+        iw = torch.clamp(torch.minimum(x2[:, None], x2[:, s:s + 256, None])
+                         - torch.maximum(x1[:, None], x1[:, s:s + 256, None]),
+                         min=0.0)
+        ih = torch.clamp(torch.minimum(y2[:, None], y2[:, s:s + 256, None])
+                         - torch.maximum(y1[:, None], y1[:, s:s + 256, None]),
+                         min=0.0)
+        dividing += int(((iw * ih != 0) & (col > k)
+                         & (col < live[:, None, None])).sum())
+    words = int(written_words(dbg).sum())
+    walked, chunks = dbg["walked"].long(), dbg["chunks"].long()
+    prefix = sum(int((c - torch.arange(w, device=live.device) // 64).sum())
+                 for w, c in zip(walked.tolist(), chunks.tolist()))
+    return {"pairs": int((live * (live - 1) // 2).sum()),
+            "dividing_pairs": dividing, "mask_words": words,
+            "mask_bytes": 8 * words, "walked_prefix_words": prefix}
+
+
 def nms_phase(rec: dict, cfg, device: str = "cuda") -> dict:
-    """Phase 9: K4 against its plain version and the blocked NMS, the
-    NMS A/B entry point, and the times. Returns K4's kernels-line
-    entry."""
+    """Phase 9: K4 against its plain versions and the blocked NMS, its
+    debug output against the bitmask model, the NMS A/B entry point, and
+    the times. Returns K4's kernels-line entry."""
+    import re
     import torch
     from ekaid_torch.models.greedy_decode import greedy_decode
     from ekaid_torch.ops import nms as nms_ops
@@ -735,33 +849,66 @@ def nms_phase(rec: dict, cfg, device: str = "cuda") -> dict:
              "extraction": proposal_nms_inputs(cfg, dev)}
     cases = [("bench geometry", *geoms["bench"])]
     cases += [(n, T(b), T(s), iou, m) for n, b, s, iou, m in nms_hard_set()]
-    # the most rows the kernel's shared memory takes (all of it)
+    # the most rows the order kernel sorts
     mb, ms = bench_nms.make_inputs(2, nk.MAX_ROWS, SEED + 1)
     cases.append((f"R={nk.MAX_ROWS}", T(mb), T(ms), 0.5, 50))
     cases.append(("extraction geometry", *geoms["extraction"]))
+    cases += [(n, T(b), T(s), iou, m) for n, b, s, iou, m in nms_edge_set()]
 
-    # ---- 9a. K4 against its plain version and the blocked NMS ------------
+    # ---- 9a. K4 against its plain versions and the blocked NMS -----------
     r9 = rec["nms"] = {"cases": {}}
-    log("[9] K4 vs plain vs blocked NMS, f32, selections equal in order")
+    debug = {}
+    log("[9] K4 vs plain vs blocked NMS, f32, selections equal in order; "
+        "with the whole mask built, K4's order, mask and scan counts "
+        "bit-equal to the bitmask model")
     for name, boxes, scores, iou, max_out in cases:
         got = nk.nms_kernel(boxes, scores, iou, max_out)
+        dbg = {}                     # a call that builds the whole mask
+        full = nk.nms_kernel(boxes, scores, iou, max_out, debug=dbg)
         live = torch.zeros(scores.shape[0], dtype=torch.int64, device=dev)
         plain = nk.nms_kernel_plain(boxes, scores, iou, max_out,
                                     live_rows=live)
         blocked = nms_ops.nms(boxes, scores, iou, max_out)
+        model = nk.nms_bitmask_plain(boxes, scores, iou, max_out, debug=True)
         torch.cuda.synchronize()
         nms_same(got, plain, f"{name}: K4 vs plain")
         nms_same(got, blocked, f"{name}: K4 vs blocked nms")
+        nms_same(full, plain, f"{name}: K4 with the whole mask vs plain")
+        nms_same(got, (model["idx"], model["valid"]),
+                 f"{name}: K4 vs bitmask model")
+        bitmask_same(dbg, model, f"{name}: K4 vs bitmask model")
+        debug[name] = dbg
         r9["cases"][name] = c = {
             "shape": list(scores.shape), "iou": iou, "max_out": max_out,
-            "picks": got[1].sum(-1).tolist(), "live_rows": live.tolist()}
+            "picks": got[1].sum(-1).tolist(), "live_rows": live.tolist(),
+            "L": dbg["live"].tolist(), "walked": dbg["walked"].tolist(),
+            "chunks": dbg["chunks"].tolist()}
         log(f"  {name}: {tuple(scores.shape)} IoU {iou} max_out {max_out}:"
-            f" equal; picks per image {c['picks']}; live rows over the "
-            f"steps {sum(c['live_rows'])}")
+            f" equal, debug bit-equal; picks per image {c['picks']}; live "
+            f"rows over the steps {sum(c['live_rows'])}; rows walked "
+            f"{c['walked']} in {c['chunks']} chunks of 64")
     hard = r9["cases"]["hard set"]["picks"]
     if hard[3] > 37 or hard[4] != 0:
         raise AssertionError(f"hard set picks {hard}: the padded image has "
                              "37 live rows, the dead one none")
+    # a second call gives the same bits
+    for g in ("bench geometry", "extraction geometry"):
+        boxes, scores, iou, max_out = next(c[1:] for c in cases if c[0] == g)
+        again = {}
+        got = nk.nms_kernel(boxes, scores, iou, max_out, debug=again)
+        first = nk.nms_kernel(boxes, scores, iou, max_out)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], first[0]) and torch.equal(got[1],
+                                                              first[1])):
+            raise AssertionError(f"{g}: two K4 calls differ")
+        written = written_words(debug[g])
+        for k, v in debug[g].items():
+            same = (torch.equal(v[written], again[k][written]) if k == "mask"
+                    else torch.equal(v, again[k]))
+            if not same:
+                raise AssertionError(f"{g}: two K4 calls differ in {k}")
+    log("  two K4 calls bit-equal (indices, valid, order, mask, counts) at "
+        "the bench and extraction geometries")
 
     # ---- 9b. the NMS A/B entry point -------------------------------------
     counters = (nk.nms_kernel, greedy_decode, rk.multilevel_roi_align_canvas,
@@ -784,11 +931,10 @@ def nms_phase(rec: dict, cfg, device: str = "cuda") -> dict:
     # ---- 9c. times ---------------------------------------------------------
     for g, (boxes, scores, iou, max_out) in geoms.items():
         n, r = scores.shape
-        idx = torch.empty(n, max_out, dtype=torch.int32, device=dev)
-        valid = torch.empty(n, max_out, dtype=torch.bool, device=dev)
+        idx, valid, scratch = nk.kernel_buffers(n, r, max_out, dev)
 
         def alone():
-            nk._kernel_launch(boxes, scores, iou, idx, valid)
+            nk._kernel_launch(boxes, scores, iou, idx, valid, scratch)
 
         reads = nms_ops._survivor_mask.host_reads
         nms_ops.nms(boxes, scores, iou, max_out)
@@ -799,31 +945,51 @@ def nms_phase(rec: dict, cfg, device: str = "cuda") -> dict:
                 alone if which == "kernel" else
                 lambda: nms_ops.nms(boxes, scores, iou, max_out),
                 20 if which == "kernel" else 5))
+        split = {re.search(r"nms_(\w+?)_kernel", k).group(1): v
+                 for k, v in profiler_kernels(alone, "nms_").items()}
         c = r9["cases"][f"{g} geometry"]
         picks, steps = sum(c["picks"]), max(c["picks"])
         live = sum(c["live_rows"])
         t = r9[g] = dict(
             nms_bound(n, r, max_out, live),
             ms=statistics.mean(runs["kernel"]),
+            cold_l2_ms=cold_l2_ms(alone, 20),
             wrapper_ms=cuda_ms(lambda: nk.nms_kernel(boxes, scores, iou,
                                                      max_out), 20),
-            profiler_kernel_ms=profiler_kernel_ms(alone, "greedy_nms_kernel"),
+            profiler_kernel_ms=sum(v["ms"] for v in split.values()) or None,
+            profiler_split_ms={k: v["ms"] for k, v in split.items()},
+            kernels_per_call=sum(v["launches"] for v in split.values()),
+            scratch_bytes=nk.scratch_bytes(n, r),
+            design=bitmask_work(boxes, debug[f"{g} geometry"]),
             blocked_ms=statistics.mean(runs["blocked"]),
-            blocked_host_reads=reads, serial_steps=steps, picks=picks,
-            live_rows=live, runs=runs,
+            blocked_host_reads=reads, max_picks=steps, picks=picks,
+            live_rows=live, walked=c["walked"], chunks=c["chunks"],
+            runs=runs,
             # the plain version at max_out=1000 is a 1000-step loop
             plain_ms=cuda_ms(lambda: nk.nms_kernel_plain(
                 boxes, scores, iou, max_out), 2 if g == "bench" else 1))
         t["x_bound"] = t["ms"] / t["bound_ms"]
+        d = t["design"]
+        # row tiles the producers built in the last timed call, against
+        # the whole triangle of the debug call
+        d["tiles_built"] = int(nk.scratch_views(scratch, n, r)["tiles"].sum())
+        d["tiles_whole"] = int(debug[f"{g} geometry"]["tiles"].sum())
         log(f"    K4 {g} {tuple(scores.shape)}, IoU {iou}, {max_out} slots: "
             f"launch alone {t['ms']:.4f} ms (runs "
-            f"{['%.4f' % v for v in runs['kernel']]}; profiler's device time "
-            f"{t['profiler_kernel_ms']}), wrapper {t['wrapper_ms']:.4f} ms; "
-            f"{steps} serial steps, {picks} picks, {live} live rows over the "
-            f"steps ({live / (r * max(picks, 1)):.3f} of R at every pick); "
-            f"bound {t['bound_ms']:.5f}"
-            f" ms ({t['bound_by']}: {t['mflop']:.1f} MFLOP at 67 TFLOP/s, "
-            f"{t['kbytes']:.0f} KB at 3.35 TB/s), {t['x_bound']:.0f}x; "
+            f"{['%.4f' % v for v in runs['kernel']]}; L2 flushed "
+            f"{t['cold_l2_ms']:.4f}; profiler's device time "
+            f"{t['profiler_kernel_ms']}, by kernel "
+            f"{t['profiler_split_ms']}, {t['kernels_per_call']} kernels a "
+            f"call), wrapper {t['wrapper_ms']:.4f} ms; {picks} picks, rows "
+            f"walked {c['walked']} in {c['chunks']} chunks of 64; bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']}: {t['mflop']:.1f} MFLOP"
+            f" over {live} live rows at 67 TFLOP/s, {t['kbytes']:.0f} KB at "
+            f"3.35 TB/s), {t['x_bound']:.0f}x; design: {d['pairs']} pairs, "
+            f"{d['dividing_pairs']} with an intersection, "
+            f"{d['tiles_built']} of {d['tiles_whole']} mask tiles built, "
+            f"{d['mask_bytes'] / 1e6:.2f} MB of mask "
+            f"words ({d['walked_prefix_words']} of {d['mask_words']} words in "
+            f"the walked prefix), scratch {t['scratch_bytes'] / 1e6:.2f} MB; "
             f"plain {t['plain_ms']:.1f} ms; blocked nms {t['blocked_ms']:.3f}"
             f" ms with {reads} host reads a call")
     b = r9["bench"]

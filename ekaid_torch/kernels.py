@@ -40,9 +40,10 @@ ENTRY = {
     # out_size, sampling ratio, geometry (or null), stream
     "roi_align": ("ekaid_roi_align", [_I, _I, _P, _P, _I, _I, _P, _I, _I,
                                       _I, _P, _P]),
-    # boxes, scores, iou threshold, indices, valid, images, rows, slots,
-    # stream
-    "nms": ("ekaid_nms", [_P, _P, ctypes.c_float, _P, _P, _I, _I, _I, _P]),
+    # boxes, scores, iou threshold, indices, valid, scratch, images, rows,
+    # slots, full mask, stream
+    "nms": ("ekaid_nms", [_P, _P, ctypes.c_float, _P, _P, _P, _I, _I, _I,
+                          _I, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -9,7 +9,8 @@ CUDA events over `--iters` calls after a warm-up call:
 
 * `blocked`: `ops/nms.py::nms`, the NMS the extraction path runs, with
   its host reads per call (one per fixed-point iteration);
-* `k4_cuda`: `ops/nms_kernel.py::nms_kernel`, one launch for the batch.
+* `k4_cuda`: `ops/nms_kernel.py::nms_kernel`, one call for the batch
+  (two CUDA kernels: the order, then the mask and the scan together).
 
 Prints one JSON line for each, then the agreement of their kept sets,
 which must be 1.0 (the script exits non-zero otherwise).
