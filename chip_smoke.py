@@ -20,7 +20,10 @@ Phases, each fatal on failure:
      ulps recorded, zx and h_mod within 2 ulps; records, not gates, on
      ROLLED_SETS more bf16 parameter sets: K1's step-0 gap to the plain
      version beside the CPU's plain version's, and for the largest gap
-     the one-step intermediates of both in ulps;
+     the one-step intermediates of both in ulps; and records of the f32
+     and bf16 comparisons on the inputs that two other draws of the
+     weight norm give (g at init from the forward's sum of squares, and
+     both from that sum in f64);
   4. the main path: an `EkaidModel` at flagship width under the bf16
      policy behind the batch-1 `InferenceEngine`, answering questions
      over the synthetic pair store, then one batch-64 decode; the
@@ -75,7 +78,29 @@ Phases, each fatal on failure:
      wrapper; the plain version; the blocked NMS with its host reads)
      beside K4's bound, the design's own work (pairs, dividing pairs,
      mask bytes, mask tiles built) and the rows and chunks the scan
-     walked.
+     walked;
+ 10. the training path at flagship width: one f32 train step (dropout
+     off, ss_prob 0, B=8) on the card and on the CPU from the same
+     seeded weights and batch, and the same step with every f32 cast
+     promoted to f64: loss within 1e-5 relative, each gradient tensor
+     of the card no further from the f64 step than TRAIN_GRAD_RATIO x
+     the CPU's + TRAIN_GRAD_TOL (card to CPU recorded), and the Adam
+     updates of the elements whose gradient stands above the card-CPU
+     gap within UPDATE_TOL lr + 2 ulps of the CPU's; then
+     `build_synthetic_trainer(corpus='learnable')` at bf16, batch 64,
+     trained 8 steps with a snapshot and an eval of 4 batches at steps 4
+     and 8: every logged loss and grad_norm finite, K1's launches equal
+     to the eval decodes, each eval batch's step-0 tokens equal to the
+     plain decode on weights built fresh from the current parameters,
+     the two evals on different weights, the cached eval equal to the
+     wire eval token for token; a fresh trainer restored at step 4 and
+     run to 8 (its largest parameter gap to the uninterrupted run
+     recorded); device memory flat over evals once the packed weight
+     cache is full; then times (train step, QA pairs trained/s, the
+     forward / backward / optimizer split, peak memory, eval pairs/s,
+     K1 per eval decode) and one step under torch.profiler (the card's
+     busy share of the step, its device activities, the top kernels).
+     K1's launches here add to its `kernels` entry.
 Prints one `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}, after a `record:` line with every number
 as JSON. Without a CUDA device, or outside the repository, it exits
@@ -86,6 +111,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -122,6 +148,23 @@ BOUNDARY_ULPS = 8
 # max, subtract, clamp each), the product, the union (add, subtract),
 # the quotient, the threshold test and the arg-max comparison
 NMS_OPS_PER_ROW = 14
+# phase 10: the training path
+TRAIN_B = 8                        # the card-vs-CPU f32 step
+TRAIN_LOSS_RTOL = 1e-5
+# the card's gradients no further from the step in f64 than this many
+# times the CPU's, plus TRAIN_GRAD_TOL; distances of each tensor over
+# its largest magnitude, or over GRAD_FLOOR of the largest of all
+TRAIN_GRAD_RATIO = 2.0
+TRAIN_GRAD_TOL = 2e-4
+GRAD_FLOOR = 1e-3
+# the updates of elements whose |g| is over UPDATE_SIGNAL x the tensor's
+# card-CPU gradient gap: within UPDATE_TOL lr + 2 ulps of the CPU's, on
+# at least UPDATE_MIN_SHARE of the elements
+UPDATE_SIGNAL = 10.0
+UPDATE_TOL = 1e-2
+UPDATE_MIN_SHARE = 0.25
+TRAIN_STEPS = 8                    # two snapshots, at 4 and 8
+EVAL_BATCHES = 4
 
 
 def log(msg: str) -> None:
@@ -196,6 +239,45 @@ def profiler_kernel_ms(fn, kernel_name: str, reps: int = 10):
     ms = sum(k["ms"] for k in profiler_kernels(fn, kernel_name,
                                                reps).values())
     return ms or None
+
+
+def device_busy(fn, reps: int = 2, top: int = 8) -> dict:
+    """A torch.profiler trace (device activity only) of `reps` calls of
+    `fn`: the host wall time a call, the time the card was busy within
+    it (the union of its kernel, copy and set intervals), their ratio,
+    the launches a call, and the `top` kernels by device time with their
+    ms and launches a call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (b - a) / 1e3, n + 1)
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_ms": wall_us / reps / 1e3, "busy_ms": busy / reps / 1e3,
+            "busy_share": busy / wall_us if wall_us else None,
+            "launches": len(spans) / reps,
+            "device_ms_sum": sum(v[0] for v in by_name.values()) / reps,
+            "top": [{"name": k[:80], "ms": v[0] / reps,
+                     "launches": v[1] / reps} for k, v in kernels]}
 
 
 def steps_run(seq) -> int:
@@ -1122,6 +1204,88 @@ def rolled_sets_record(rec: dict, w16, sp, fused16, feats16) -> None:
     r["worst"] = trace
 
 
+def summed_norm_record(rec: dict, cfg, batch) -> None:
+    """Records, not gates: phase 3's K1 comparisons on the inputs that
+    two other draws of the weight norm give: g at init from
+    `layers.frobenius` (the forward's sqrt(sum(v * v))) in place of
+    `torch.linalg.norm` on the CPU; and init and forward both from the
+    sum in f64. For each: the f32 B=64 decodes, plain and with the
+    decoding constraint, against the plain version (tokens that differ
+    and, at the first, the gap between the plain version's two best
+    logprobs), and the bf16 step-0 logprob gap and step-0 tokens at
+    B=64 and BF16_GROUPS_B."""
+    import torch
+    from ekaid_torch.data.synthetic import synthetic_batch
+    from ekaid_torch.models import layers
+    from ekaid_torch.models.ekaid import EkaidModel
+    from ekaid_torch.models.greedy_decode import (greedy_decode,
+                                                  greedy_decode_plain)
+    from ekaid_torch.utils.dtypes import BF16, F32
+    sp = cfg.speaker
+    ntoken = sp.vocab_size - 1
+    b80 = synthetic_batch(cfg, BF16_GROUPS_B, seed=SEED + 2)
+    real = layers.frobenius, torch.linalg.norm
+    variants = {   # (the norm at init, the forward's)
+        "init_sum": (lambda x, *a, **k: real[0](x), real[0]),
+        "sum_f64": ((lambda x, *a, **k: torch.sqrt(torch.sum(torch.square(
+            x.double()))).float()),) * 2}
+    r = rec["summed_norm"] = {}
+    grad = torch.is_grad_enabled()
+    torch.set_grad_enabled(False)
+    try:
+        for name, (init_norm, norm) in variants.items():
+            layers.frobenius = norm
+            e = r[name] = {}
+            for pol in (F32, BF16):
+                torch.linalg.norm = init_norm
+                m = EkaidModel(cfg, ntoken, policy=pol, device="cuda",
+                               seed=SEED)
+                torch.linalg.norm = real[1]
+                w = m.speaker.decode_weights()
+                for b in ((batch, b80) if pol is BF16 else (batch,)):
+                    enc = m.encode(b)
+                    f, x = m.speaker._fused(enc["feat_bef"],
+                                            enc["feat_diff"],
+                                            enc["feat_aft"])
+                    B = f.shape[0]
+                    if pol is BF16:
+                        ref = greedy_decode_plain(w, sp, BF16, f, x)
+                        out = greedy_decode(w, sp, BF16, f, x)
+                        e[f"bf16_B{B}"] = {
+                            "step0_lp_gap": (ref["logprobs"][:, 0] - out[
+                                "logprobs"][:, 0]).abs().max().item(),
+                            "step0_tokens_equal": bool(torch.equal(
+                                ref["seq"][:, 0], out["seq"][:, 0]))}
+                        continue
+                    for what, s in (("plain", sp), ("constraint", sp.replace(
+                            decoding_constraint=1))):
+                        ref = greedy_decode_plain(w, s, F32, f, x)
+                        out = greedy_decode(w, s, F32, f, x)
+                        d = ref["seq"] != out["seq"]
+                        item = e[f"f32_B{B}_{what}"] = {
+                            "tokens_differ": int(d.sum())}
+                        if not d.any():
+                            continue
+                        row = int(d.any(1).nonzero()[0])
+                        t = int(d[row].nonzero()[0])
+                        lg = greedy_decode_plain(
+                            w, s.replace(seq_length=t + 1), F32, f, x,
+                            scratch=True)["logits"][row].double()
+                        lp = lg - torch.logsumexp(lg, 0)
+                        if t == 0 or s.decoding_constraint:
+                            lp[0 if t == 0 else int(ref["seq"][row, t - 1])
+                               ] = -math.inf
+                        top = torch.topk(lp, 2).values
+                        item.update(row=row, step=t, plain_top2_gap=float(
+                            top[0] - top[1]))
+            log(f"  record: weight norm by {name}: " + "; ".join(
+                f"{k} {v}" for k, v in e.items()))
+    finally:
+        layers.frobenius, torch.linalg.norm = real
+        torch.set_grad_enabled(grad)
+    torch.cuda.synchronize()
+
+
 def k1_phase(rec: dict, cfg):
     """Phase 3: K1 against its plain version at flagship width. Returns
     the bf16 model, the B=64 batch, its bf16 decode inputs, weights and
@@ -1222,7 +1386,356 @@ def k1_phase(rec: dict, cfg):
         "is bit-equal (seq, logprobs, module_weights)")
     one_step(rec, w32, w16, sp, (fused, feats), (fused16, feats16))
     rolled_sets_record(rec, w16, sp, fused16, feats16)
+    summed_norm_record(rec, cfg, batch)
     return m16, batch, fused16, feats16, w16, out16
+
+
+def _grad_gaps(got: dict, want: dict) -> dict:
+    """Each tensor's largest gap, over the larger of its own largest
+    magnitude and GRAD_FLOOR of the largest magnitude of all (tensors
+    whose gradient is zero in exact arithmetic hold rounding noise)."""
+    top = max(float(w.abs().max()) for w in want.values())
+    return {n: float((got[n].float().cpu() - w.float()).abs().max())
+            / max(float(w.abs().max()), GRAD_FLOOR * top)
+            for n, w in want.items()}
+
+
+def _f64_grads(cfg, batch, ntoken: int, device: str) -> dict:
+    """The gradients of the train step's loss with every f32 cast of the
+    model promoted to f64 (`Tensor.float` patched for the call): the step
+    in near-exact arithmetic, for the record."""
+    import numpy as np
+    import torch
+    from ekaid_torch.models.ekaid import EkaidModel, total_loss
+    from ekaid_torch.utils.dtypes import Policy
+    f64 = Policy(param_dtype=torch.float32, compute_dtype=torch.float64,
+                 softmax_dtype=torch.float64)
+    model = EkaidModel(cfg, ntoken, policy=f64, device=device,
+                       seed=SEED).double()
+    b = {k: torch.as_tensor(v, device=device).double()
+         if np.asarray(v).dtype == np.float32 else v
+         for k, v in batch.items()}
+    real = torch.Tensor.float
+    torch.Tensor.float = lambda self, *a, **k: self.double()
+    try:
+        out = model(b)
+        loss, _ = total_loss(out, model.tensors(b, train=True),
+                             cfg.train.att_reg_weight)
+        loss.backward()
+    finally:
+        torch.Tensor.float = real
+    return {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def train_card_vs_cpu(rec: dict, cfg, device: str = "cuda") -> None:
+    """10a. One f32 train step (dropout off, ss_prob 0, the config's
+    Adam) at the config's widths and B=TRAIN_B, on the card and on the
+    CPU, from the same seeded weights and batch, and the same step's
+    gradients with every f32 cast promoted to f64 (on the card). Gates:
+    the loss, card against CPU, within TRAIN_LOSS_RTOL; each gradient
+    tensor of the card no further from the f64 step than
+    TRAIN_GRAD_RATIO x the CPU's distance + TRAIN_GRAD_TOL (distances
+    over the larger of the tensor's largest magnitude and GRAD_FLOOR of
+    the largest of all; the card-CPU gap is recorded); and the Adam
+    updates of the elements whose gradient stands above the card-CPU
+    gradient gap (|g| over UPDATE_SIGNAL x the tensor's largest gap, and
+    over 1e3 x Adam's eps) within UPDATE_TOL lr + 2 ulps of the CPU's,
+    on at least UPDATE_MIN_SHARE of all elements. Adam's first step
+    moves each element by about sign(g) lr, so elements whose gradient
+    is at noise size may step either way and are not held."""
+    import torch
+    from ekaid_torch.data.synthetic import synthetic_batch
+    from ekaid_torch.models.ekaid import EkaidModel
+    from ekaid_torch.train.step import init_state, train_step
+    from ekaid_torch.utils.dtypes import F32
+    c32 = cfg.replace(dtypes=cfg.dtypes.replace(compute_dtype="float32"))
+    batch = synthetic_batch(c32, TRAIN_B, seed=SEED + 3)
+    ntoken = c32.speaker.vocab_size - 1
+    lr = c32.train.optim.lr
+    runs = {}
+    for dev in ("cpu", device):
+        model = EkaidModel(c32, ntoken, policy=F32, device=dev, seed=SEED)
+        before = {n: p.detach().cpu().clone()
+                  for n, p in model.named_parameters()}
+        state = init_state(model, c32.train.optim)
+        t0 = time.perf_counter()
+        m = train_step(state, batch, SEED, c32.train.att_reg_weight,
+                       train=False)
+        loss = float(m["total_loss"])
+        runs[dev] = (loss, {n: p.grad.detach().cpu() for n, p in
+                            model.named_parameters() if p.grad is not None},
+                     before, {n: p.detach().cpu() for n, p in
+                              model.named_parameters()},
+                     time.perf_counter() - t0)
+    l_c, g_c, p0, p_c, s_c = runs["cpu"]
+    l_g, g_g, _, p_g, s_g = runs[device]
+    rel = abs(l_g - l_c) / abs(l_c)
+    ggap = _grad_gaps(g_g, g_c)
+    g64 = _f64_grads(cfg, batch, ntoken, device)
+    card64, cpu64 = _grad_gaps(g_g, g64), _grad_gaps(g_c, g64)
+    over = {n: (card64[n], cpu64[n]) for n in g64
+            if not card64[n] <= TRAIN_GRAD_RATIO * cpu64[n] + TRAIN_GRAD_TOL}
+    # the updates of elements whose gradient stands above the gap
+    checked = total = 0
+    worst_u = 0.0
+    for n, p in p0.items():
+        total += p.numel()
+        if n not in g_c:
+            continue
+        g = g_c[n]
+        strong = (g.abs() > UPDATE_SIGNAL * float((g_g[n] - g).abs().max())
+                  ) & (g.abs() > 1e3 * c32.train.optim.epsilon)
+        ulp = torch.nextafter(p_c[n].abs(), torch.full_like(p, math.inf)
+                              ) - p_c[n].abs()
+        err = ((p_g[n] - p_c[n]).abs() - 2 * ulp)[strong] / lr
+        checked += int(strong.sum())
+        if err.numel():
+            worst_u = max(worst_u, float(err.max()))
+    moved = torch.cat([((p_g[n] - p_c[n]).abs() > 0.01 * lr).flatten()
+                       for n in p_c])
+    r = rec["train_f32"] = {
+        "loss_card": l_g, "loss_cpu": l_c, "loss_rel_err": rel,
+        "grad_gap_card_cpu": max(ggap.values()),
+        "grad_gap_card_cpu_worst": max(ggap, key=ggap.get),
+        "grad_gap_card_cpu_over_1e-4": sum(v > 1e-4 for v in ggap.values()),
+        "grad_gap_to_f64": {"card": max(card64.values()),
+                            "cpu": max(cpu64.values())},
+        "grad_gap_to_f64_worst": max(card64, key=card64.get),
+        "grad_gap_to_f64_excess": [
+            (n, card64[n], cpu64[n]) for n in sorted(
+                g64, key=lambda n: cpu64[n] - card64[n])[:3]],
+        "grad_gap_to_f64_margin": min(
+            TRAIN_GRAD_RATIO * cpu64[n] + TRAIN_GRAD_TOL - card64[n]
+            for n in g64),
+        "update_checked_share": checked / total,
+        "update_checked_max_gap_lr": worst_u,
+        "update_split_share": float(moved.float().mean()),
+        "step_s_card": s_g, "step_s_cpu": s_c}
+    log(f"[10a] f32 train step B={TRAIN_B}, card vs CPU: loss {l_g:.7f} vs "
+        f"{l_c:.7f} (rel {rel:.2e}); gradients to the step in f64: card "
+        f"{r['grad_gap_to_f64']['card']:.2e}, CPU "
+        f"{r['grad_gap_to_f64']['cpu']:.2e} "
+        f"({r['grad_gap_to_f64_worst']}), least margin to the gate "
+        f"{r['grad_gap_to_f64_margin']:.2e}, largest excess over the CPU "
+        + ", ".join(f"{n} {a:.2e} vs {b:.2e}"
+                    for n, a, b in r["grad_gap_to_f64_excess"])
+        + f"; card to CPU "
+        f"{r['grad_gap_card_cpu']:.2e} ({r['grad_gap_card_cpu_worst']}; "
+        f"{r['grad_gap_card_cpu_over_1e-4']} of {len(ggap)} tensors over "
+        f"1e-4); updates above the gap: {r['update_checked_share']:.4f} of "
+        f"the elements, largest gap {worst_u:.2e} lr past 2 ulps; elements "
+        f"apart by over 0.01 lr {r['update_split_share']:.2e}")
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train step loss: card {l_g} vs CPU {l_c}")
+    if over:
+        raise AssertionError(f"card gradients further from the f64 step "
+                             f"than {TRAIN_GRAD_RATIO}x the CPU's + "
+                             f"{TRAIN_GRAD_TOL}: {over}")
+    if not (worst_u <= UPDATE_TOL and checked / total >= UPDATE_MIN_SHARE):
+        raise AssertionError(f"updates above the gradient gap differ: "
+                             f"largest {worst_u} lr past 2 ulps, on "
+                             f"{checked / total} of the elements")
+
+
+def train_phase(rec: dict, cfg, device: str = "cuda") -> int:
+    """Phase 10, the training path at the config's widths: the card
+    against the CPU (10a), then the trainer on the learnable corpus
+    (10b), a resume (10c) and times (10d). Returns K1's launches on the
+    trainer's path."""
+    import shutil
+    import numpy as np
+    import torch
+    from ekaid_torch.models import greedy_decode as gd
+    from ekaid_torch.train.step import train_step
+    from ekaid_torch.train.train import build_synthetic_trainer
+    from ekaid_torch.utils.checkpoint import CheckpointManager
+    train_card_vs_cpu(rec, cfg, device)
+    sync = (torch.cuda.synchronize if device == "cuda" else (lambda: None))
+
+    # ---- 10b. the trainer ------------------------------------------------
+    work = ROOT / "build" / "train_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    tcfg = cfg.replace(train=cfg.train.replace(
+        max_iter=TRAIN_STEPS, snapshot_interval=TRAIN_STEPS // 2,
+        log_interval=1))
+    tr = build_synthetic_trainer(tcfg, str(work / "a"), corpus="learnable",
+                                 device=device)
+    model, sp = tr.model, tr.model.speaker
+    decode = model.decode
+    evals = []                # per eval: each batch's decoded seq
+    seen = {}
+
+    def checked_decode(batch):
+        """The trainer's decode, held at once against the plain version
+        on the same encoded inputs, with decode weights built fresh from
+        the current parameters."""
+        out = decode(batch)
+        with torch.no_grad():
+            w = gd.decode_weights(sp, sp.cfg, model.policy)
+            enc = model.encode(batch)
+            fused, feats = sp._fused(enc["feat_bef"], enc["feat_diff"],
+                                     enc["feat_aft"])
+            ref = gd.greedy_decode_plain(w, sp.cfg, model.policy, fused,
+                                         feats)
+        if not torch.equal(out["seq"][:, 0], ref["seq"][:, 0]):
+            raise AssertionError(f"eval {len(evals)}: K1's step-0 tokens "
+                                 "differ from the plain decode on fresh "
+                                 "weights")
+        seen["fused"], seen["feats"], seen["w"] = fused, feats, w
+        evals[-1].append(out["seq"].clone())
+        return out
+
+    model.decode = checked_decode
+    real_eval = tr.evaluate
+    weights_at_eval = []
+
+    def counted_evaluate(*a, **k):
+        evals.append([])
+        weights_at_eval.append(sp.decode_weights()["wlogit"].clone())
+        return real_eval(*a, **k)
+
+    tr.evaluate = counted_evaluate
+    tr.step_seconds = []
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    gd.greedy_decode.launches = 0
+    tr.train(eval_fraction=EVAL_BATCHES)
+    launches = gd.greedy_decode.launches
+    decodes = sum(len(e) for e in evals)
+    rows = [json.loads(line) for line in
+            (work / "a" / "metrics.jsonl").read_text().splitlines()]
+    losses = [(r["train/total_loss"], r["train/grad_norm"]) for r in rows
+              if "train/total_loss" in r]
+    log(f"[10b] trainer, learnable corpus, B={tr.train_ds.batch_size}: "
+        f"{tr.state.step} steps, losses "
+        f"{[round(x[0], 4) for x in losses]}, {len(evals)} evals of "
+        f"{[len(e) for e in evals]} batches, K1 launches {launches} for "
+        f"{decodes} decodes")
+    if len(losses) != TRAIN_STEPS or not all(
+            np.isfinite(x).all() for x in map(np.asarray, losses)):
+        raise AssertionError(f"trainer: logged losses {losses}")
+    if len(evals) != 2 or any(len(e) != EVAL_BATCHES for e in evals):
+        raise AssertionError(f"trainer: evals {[len(e) for e in evals]}")
+    if launches != decodes:
+        raise AssertionError(f"K1 launched {launches} times for {decodes} "
+                             "eval decodes")
+    if torch.equal(weights_at_eval[0], weights_at_eval[1]):
+        raise AssertionError("the two evals decoded with the same weights")
+    # the cached eval against the wire eval, token for token
+    n0 = len(evals)
+    tr.evaluate(max_batches=EVAL_BATCHES, use_cache=True)
+    tr.evaluate(max_batches=EVAL_BATCHES, use_cache=False)
+    for i, (a, b) in enumerate(zip(evals[n0], evals[n0 + 1])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"eval batch {i}: cached and wire evals "
+                                 "decode different tokens")
+    launches = gd.greedy_decode.launches
+    decodes = sum(len(e) for e in evals)
+    if launches != decodes:
+        raise AssertionError(f"K1 launched {launches} times for {decodes} "
+                             "eval decodes")
+    rec["train_launches"] = launches
+    rec["train_peak_mb"] = (torch.cuda.max_memory_allocated() / 2**20
+                            if device == "cuda" else None)
+    rec["train_losses"] = losses
+    log(f"     cached and wire evals equal over {EVAL_BATCHES} batches; "
+        f"K1 launches {launches} = decodes {decodes}; every eval batch's "
+        "step-0 tokens equal the plain decode's on fresh weights")
+
+    # ---- 10c. resume -------------------------------------------------------
+    rcfg = tcfg.replace(train=tcfg.train.replace(snapshot_interval=10 ** 6))
+    tb = build_synthetic_trainer(rcfg, str(work / "b"), corpus="learnable",
+                                 device=device)
+    CheckpointManager(str(work / "a" / "snapshots")).restore(
+        tb.state, name=TRAIN_STEPS // 2)
+    tb.train()
+    gap = _grad_gaps({n: p.detach() for n, p in tb.model.named_parameters()},
+                     {n: p.detach().cpu() for n, p in
+                      tr.model.named_parameters()})
+    rec["resume_param_max_gap"] = max(gap.values())
+    log(f"[10c] resumed at step {TRAIN_STEPS // 2} to {tb.state.step}: "
+        f"largest parameter gap to the uninterrupted run "
+        f"{rec['resume_param_max_gap']:.3e} (recorded)")
+    del tb
+
+    # ---- 10d. times ---------------------------------------------------
+    steps = tr.step_seconds[2:TRAIN_STEPS]
+    rec["train_step_ms"] = statistics.median(steps) * 1e3
+    rec["train_step_ms_all"] = [x * 1e3 for x in tr.step_seconds]
+    B = tr.train_ds.batch_size
+    rec["train_pairs_per_s"] = B / statistics.median(steps)
+    from ekaid_torch.data.pipeline import Loader
+    from ekaid_torch.models.ekaid import total_loss
+    from ekaid_torch.train.train import to_device
+    batch = to_device(next(iter(Loader(tr.train_ds, shuffle=False))),
+                      tr.device)
+    st = tr.state
+    split = {}
+    for _ in range(2):                 # the first warms up
+        model.zero_grad(set_to_none=True)
+        sync()
+        t0 = time.perf_counter()
+        out = model(batch)
+        loss, _ = total_loss(out, model.tensors(batch, train=True),
+                             tcfg.train.att_reg_weight)
+        sync()
+        t1 = time.perf_counter()
+        loss.backward()
+        sync()
+        t2 = time.perf_counter()
+        st.opt.step([p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in st.opt.params])
+        sync()
+        t3 = time.perf_counter()
+        split = {"forward_ms": (t1 - t0) * 1e3,
+                 "backward_ms": (t2 - t1) * 1e3,
+                 "optimizer_ms": (t3 - t2) * 1e3}
+    rec["train_split"] = split
+    # where the step's time goes: the card's busy share of one step
+    prof = rec["train_profile"] = device_busy(lambda: train_step(
+        st, batch, tcfg.train.seed, tcfg.train.att_reg_weight)) \
+        if device == "cuda" else None
+    # memory across evals on changing weights: flat once the packed
+    # weight cache (its last 4 sets) is full
+    mem = []
+    for _ in range(6):
+        train_step(st, batch, tcfg.train.seed, tcfg.train.att_reg_weight)
+        real_eval(max_batches=1)
+        sync()
+        mem.append(torch.cuda.memory_allocated() / 2**20
+                   if device == "cuda" else 0.0)
+    rec["eval_memory_mb"] = mem
+    if max(mem[4:]) > mem[3] * 1.01 + 1:
+        raise AssertionError(f"device memory grows over evals: {mem}")
+    model.decode = decode
+    real_eval(max_batches=EVAL_BATCHES)            # warm
+    sync()
+    t0 = time.perf_counter()
+    real_eval(max_batches=EVAL_BATCHES)
+    sync()
+    rec["eval_pairs_per_s"] = EVAL_BATCHES * B / (time.perf_counter() - t0)
+    w, f, x = seen["w"], seen["fused"], seen["feats"]
+    rec["train_eval_k1_ms"] = (cuda_ms(lambda: gd.greedy_decode(
+        w, sp.cfg, model.policy, f, x), 10) if device == "cuda" else None)
+    log(f"[10d] on {rec.get('card', device)}: train step "
+        f"{rec['train_step_ms']:.1f} ms (median of steps 3-{TRAIN_STEPS}, "
+        f"all {['%.1f' % t for t in rec['train_step_ms_all']]}), "
+        f"{rec['train_pairs_per_s']:.1f} QA pairs trained/s; forward "
+        f"{split['forward_ms']:.1f} / backward {split['backward_ms']:.1f} / "
+        f"optimizer {split['optimizer_ms']:.1f} ms; peak memory "
+        f"{rec['train_peak_mb']} MiB; eval {rec['eval_pairs_per_s']:.1f} "
+        f"pairs/s; K1 {rec['train_eval_k1_ms']} ms per eval decode; "
+        f"memory over evals {['%.0f' % m for m in mem]} MiB")
+    if prof:
+        log(f"     one train step under the profiler: {prof['wall_ms']:.1f} "
+            f"ms host wall, the card busy {prof['busy_ms']:.1f} ms "
+            f"({prof['busy_share']:.3f}), {prof['launches']:.0f} device "
+            "activities; top by device time: " + "; ".join(
+                f"{k['name']} {k['ms']:.2f} ms x{k['launches']:.0f}"
+                for k in prof["top"]))
+    shutil.rmtree(work, ignore_errors=True)
+    return rec["train_launches"]
 
 
 def main() -> dict:
@@ -1410,6 +1923,9 @@ def main() -> dict:
         "library_ms": None}]
     kernels_line += extraction(rec)
     kernels_line.append(nms_phase(rec, cfg))
+
+    # ---- 10. the training path, whose in-training evals run K1 -----------
+    kernels_line[0]["launches"] += train_phase(rec, cfg)
     kline = {"kernels": kernels_line}
     log("record: " + json.dumps(rec))
     print(json.dumps(kline))

@@ -5,7 +5,7 @@ names and defaults are the same, so `configs/smoke.yaml` and
 `configs/mimic.yaml` load unchanged. Unknown YAML keys raise; values are
 coerced as the reference does (literal_eval, then type coercion).
 
-Sections the port does not use yet (mesh, training knobs) are kept so
+Sections the port does not use yet (mesh, the TPU knobs) are kept so
 that every existing YAML file still validates. Of the detector section,
 the TPU schedule knobs (`s2d_stem`, `roi_group`, `roi_unroll`,
 `rpn_fused_preds`) are accepted and change nothing, since each gives
@@ -304,3 +304,18 @@ def load_config(yaml_path: Optional[str] = None,
     if overrides:
         cfg = merge_overrides(cfg, overrides)
     return cfg
+
+
+def merge_from_list(cfg: Config, kv_list) -> Config:
+    """Dotted-key overrides from a flat list:
+    ['train.optim.lr', '3e-4', ...]."""
+    if len(kv_list) % 2:
+        raise ValueError("override list must be key/value pairs")
+    nested: dict = {}
+    for key, val in zip(kv_list[0::2], kv_list[1::2]):
+        d = nested
+        parts = key.split(".")
+        for part in parts[:-1]:
+            d = d.setdefault(part, {})
+        d[parts[-1]] = val
+    return merge_overrides(cfg, nested)

@@ -30,6 +30,46 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _leaves(tree: Mapping, names) -> Dict[str, np.ndarray]:
+    """A param-shaped tree flattened to `names`; raises on any leaf the
+    names lack or any name the tree lacks."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    leaves = flatten(tree)
+    extra = sorted(set(leaves) - set(names))
+    missing = sorted(set(names) - set(leaves))
+    if extra or missing:
+        raise KeyError(f"param tree does not match the model: unknown "
+                       f"leaves {extra}, missing leaves {missing}")
+    return leaves
+
+
+def _copy(dst: torch.Tensor, value: np.ndarray, name: str) -> None:
+    if value.ndim == 4:                               # HWIO -> OIHW
+        value = value.transpose(3, 2, 0, 1)
+    if tuple(value.shape) != tuple(dst.shape):
+        raise ValueError(f"{name}: tree shape {value.shape}, model "
+                         f"shape {tuple(dst.shape)}")
+    dst.copy_(torch.as_tensor(np.array(value), dtype=dst.dtype))
+
+
+def load_optax_adam_state(opt, mu: Mapping, nu: Mapping, count: int):
+    """Set the port's adam optimizer `opt` to an optax adam state: mu and
+    nu are the moment trees (nested dicts of numpy, shaped like the flax
+    params), count the updates applied, which is also the position of
+    the learning-rate schedule. Returns opt."""
+    if "mu" not in opt.slots:
+        raise ValueError(f"optimizer kind {opt.cfg.type!r} has no adam "
+                         "moments")
+    with torch.no_grad():
+        for key, tree in (("mu", mu), ("nu", nu)):
+            leaves = _leaves(tree, opt.names)
+            for name, t in zip(opt.names, opt.slots[key]):
+                _copy(t, leaves[name], f"{key}.{name}")
+    opt.count = int(count)
+    return opt
+
+
 def load_flax_params(model: torch.nn.Module, tree: Mapping
                      ) -> torch.nn.Module:
     """Copy a flax param tree (nested dicts of numpy arrays, with or

@@ -15,11 +15,17 @@ residuals (the reference model as executed); 'parallel' mixes three
 independent branches with coef_sem / coef_spa. Bef and aft run as two
 [B] passes (`pair_batch='off'`). The pixels-in mode0 front end is not
 ported yet.
+
+Given a generator, the forward runs in training mode: the relation
+encoders and the question encoder drop as their modules say, and the
+fusion and pooling take six inverted-dropout masks at rate
+`FUSION_DROPOUT` (both gates, both tanh contexts, both pooled
+embeddings).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -27,13 +33,14 @@ from torch import nn
 from ekaid_torch.models.gat import (ExplicitRelationEncoder,
                                     ImplicitRelationEncoder)
 from ekaid_torch.models.language import QuestionEncoder
-from ekaid_torch.models.layers import DenseT
+from ekaid_torch.models.layers import DenseT, dropout
 from ekaid_torch.ops.graph import position_embedding, position_matrix
 from ekaid_torch.utils.dtypes import F32, Policy
 
 _SEMANTIC = ("all", "semantic")
 _SPATIAL = ("all", "spatial", "i+s")
 _IMPLICIT = ("all", "implicit", "i+s")
+FUSION_DROPOUT = 0.5
 
 
 class ChangeDetector(nn.Module):
@@ -80,25 +87,25 @@ class ChangeDetector(nn.Module):
         pos_mat = position_matrix(bb, nongt_dim=self.cfg.nongt_dim)
         return position_embedding(pos_mat, feat_dim=self.cfg.pos_emb_dim)
 
-    def _encode_image(self, v, spa_adj, sem_adj, pos_emb, q):
+    def _encode_image(self, v, spa_adj, sem_adj, pos_emb, q, gen):
         c, g = self.cfg, self.graph
         if c.branch_mix == "sequential":
             if g in _SEMANTIC:
-                v = self.semantic_relation(v, sem_adj, q)
+                v = self.semantic_relation(v, sem_adj, q, gen)
             if g in _SPATIAL:
-                v = self.spatial_relation(v, spa_adj, q)
+                v = self.spatial_relation(v, spa_adj, q, gen)
             if g in _IMPLICIT:
-                v = self.imp_relation(v, pos_emb, q)
+                v = self.imp_relation(v, pos_emb, q, gen)
             return v
         outs, coefs = [], []
         if g in _SEMANTIC:
-            outs.append(self.semantic_relation(v, sem_adj, q))
+            outs.append(self.semantic_relation(v, sem_adj, q, gen))
             coefs.append(c.coef_sem)
         if g in _SPATIAL:
-            outs.append(self.spatial_relation(v, spa_adj, q))
+            outs.append(self.spatial_relation(v, spa_adj, q, gen))
             coefs.append(c.coef_spa)
         if g in _IMPLICIT:
-            outs.append(self.imp_relation(v, pos_emb, q))
+            outs.append(self.imp_relation(v, pos_emb, q, gen))
             coefs.append(1.0 - sum(coefs))
         if g == "all":
             return sum(w * o for w, o in zip(coefs, outs))
@@ -107,38 +114,44 @@ class ChangeDetector(nn.Module):
         return outs[0]
 
     def forward(self, input_1, input_2, d_adj, q_adj, d_sem_adj, q_sem_adj,
-                d_bb, q_bb, question) -> Dict[str, torch.Tensor]:
+                d_bb, q_bb, question,
+                gen: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         """input_1/2 [B, N, F] node features (bef, aft); d_/q_adj
         [B, N, N, spa_label_num] and d_/q_sem_adj [B, N, N, sem_label_num]
         one-hot adjacency; d_/q_bb [B, N, 4] boxes; question [B, Lq].
 
         Returns pred [B, 6], att_bef/att_aft [B, 1, N] and
-        feat_bef/feat_aft/feat_diff [B, att_dim]."""
+        feat_bef/feat_aft/feat_diff [B, att_dim]. gen: dropout draws
+        (None: eval, no dropout)."""
         p = self.policy
         cast = p.cast_compute
         input_bef = self.img(cast(input_1))
         input_aft = self.img(cast(input_2))
-        q_vec = self.question(question)
+        q_vec = self.question(question, gen)
         implicit = self.graph in _IMPLICIT
         pos_bef = self._position_emb(d_bb) if implicit else None
         pos_aft = self._position_emb(q_bb) if implicit else None
         input_bef = self._encode_image(input_bef, d_adj, d_sem_adj,
-                                       pos_bef, q_vec)
+                                       pos_bef, q_vec, gen)
         input_aft = self._encode_image(input_aft, q_adj, q_sem_adj,
-                                       pos_aft, q_vec)
+                                       pos_aft, q_vec, gen)
         input_diff = input_aft - input_bef
 
         ctx_d = self.context1(input_diff)
         gate_d = self.gate1(input_diff)
-        befs = (torch.sigmoid(gate_d + self.gate2(input_bef))
-                * torch.tanh(ctx_d + self.context2(input_bef)))
-        afts = (torch.sigmoid(gate_d + self.gate2(input_aft))
-                * torch.tanh(ctx_d + self.context2(input_aft)))
+        def drop(x):
+            return dropout(x, FUSION_DROPOUT, gen)
 
-        emb_bef = torch.relu(self.embed(
-            torch.cat([input_bef, input_diff, befs], dim=-1)))
-        emb_aft = torch.relu(self.embed(
-            torch.cat([input_aft, input_diff, afts], dim=-1)))
+        befs = (drop(torch.sigmoid(gate_d + self.gate2(input_bef)))
+                * drop(torch.tanh(ctx_d + self.context2(input_bef))))
+        afts = (drop(torch.sigmoid(gate_d + self.gate2(input_aft)))
+                * drop(torch.tanh(ctx_d + self.context2(input_aft))))
+
+        emb_bef = torch.relu(drop(self.embed(
+            torch.cat([input_bef, input_diff, befs], dim=-1))))
+        emb_aft = torch.relu(drop(self.embed(
+            torch.cat([input_aft, input_diff, afts], dim=-1))))
         att_bef = torch.sigmoid(p.cast_softmax(self.att(emb_bef)))
         att_aft = torch.sigmoid(p.cast_softmax(self.att(emb_aft)))
 

@@ -1,29 +1,40 @@
-"""Answer decoder: the two-LSTM speaker, greedy decode (counterpart of
+"""Answer decoder: the two-LSTM speaker (counterpart of
 `ekaid_tpu/models/decoder.py`).
 
 The step (`DynamicCore`): a module-attention LSTM on [fused, h_lang]
 gives 3-way weights over (bef, diff, aft); a POS head pos1 -> weight_pos
 -> softmax -> pos2; a gate on [h_lang, ppos, att]; the language LSTM on
-[word embedding, gate * att]; logits over the answer vocab. Free-running
-decode primes with `bos_token` (2, as the reference model does), bans
-NULL at the first step, optionally bans repeating the previous token,
-and stops when every row has emitted 0.
+[word embedding, gate * att]; logits over the answer vocab.
 
-The loop runs in `models/greedy_decode.py`: the CUDA kernel on the card,
-its plain version on the CPU. Teacher forcing, multinomial sampling and
-beam search are not ported yet.
+Two modes:
+  * `teacher_forcing`, the training path: step i reads seq[:, i] and
+    predicts seq[:, i + 1], with scheduled sampling, one dropout mask a
+    step, the `train_hoist` input products and the `remat` choices. It
+    is plain torch under autograd, as the reference's scan is XLA.
+  * `sample`, greedy free-running decode: primes with `bos_token` (2, as
+    the reference model does), bans NULL at the first step, optionally
+    bans repeating the previous token, and stops when every row has
+    emitted 0. The loop runs in `models/greedy_decode.py`: the CUDA
+    kernel on the card, its plain version on the CPU.
+Multinomial sampling and beam search are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint
 
 from ekaid_torch.models.greedy_decode import decode_weights, greedy_decode
-from ekaid_torch.models.layers import DenseT, LSTMCell, normal_table
+from ekaid_torch.models.layers import (DenseT, LSTMCell, apply_mask,
+                                       dropout, normal_table)
 from ekaid_torch.utils.dtypes import F32, Policy
+
+#: the POS head's dropout rate on its logits (a constant of the model)
+POS_DROPOUT = 0.5
 
 
 class DynamicCore(nn.Module):
@@ -41,6 +52,48 @@ class DynamicCore(nn.Module):
         self.gate1x = DenseT(G, G, policy=policy)
         self.gate2x = DenseT(G, D, policy=policy)
         self.lang_lstm = LSTMCell(cfg.word_embed_size + D, R, policy)
+        self.cfg = cfg
+        self.policy = policy
+
+    def forward(self, xt, fused, feats, state, masks=None, mod_pre=None,
+                lang_xt_pre=None):
+        """One step. xt [B, W] word embedding (None with lang_xt_pre);
+        fused [B, E]; feats [B, 3, D]; state (h_mod, c_mod, h_lang,
+        c_lang); masks: (vpos, dpos, gate_h) dropout masks or None;
+        mod_pre [B, 4R] = fused @ module_att_lstm.w_ih[:E] and
+        lang_xt_pre [B, 4R] = xt @ lang_lstm.w_ih[:W], precomputed by
+        teacher forcing's hoist. Returns h_lang, the new state, the POS
+        logits and the module weights [B, 3]."""
+        c, p = self.cfg, self.policy
+        cast = p.cast_compute
+        h_mod, c_mod, prev_h, c_lang = state
+        m_vpos, m_dpos, m_gate = masks if masks is not None else (None,) * 3
+        keep_lm = 1.0 - c.drop_prob_lm
+        if mod_pre is None:
+            h_mod, c_mod = self.module_att_lstm(
+                torch.cat([fused, prev_h], dim=-1), h_mod, c_mod)
+        else:
+            h_mod, c_mod = self.module_att_lstm(
+                prev_h, h_mod, c_mod, pre=mod_pre, pre_width=c.embed_dim)
+        module_weights = torch.softmax(p.cast_softmax(self.weight_fc(h_mod)),
+                                       dim=-1)
+        vpos = apply_mask(torch.relu(self.pos1(prev_h)), m_vpos, keep_lm)
+        dpos = apply_mask(self.weight_pos(vpos), m_dpos, 1.0 - POS_DROPOUT)
+        ppos = self.pos2(cast(torch.softmax(p.cast_softmax(dpos), dim=-1)))
+        att_feat = p.mm(cast(module_weights)[:, None, :],
+                        cast(feats))[:, 0]
+        gate_in = torch.cat([prev_h, ppos, att_feat], dim=-1)
+        gate_h = apply_mask(torch.relu(self.gate1x(gate_in)), m_gate,
+                            keep_lm)
+        gate = torch.sigmoid(self.gate2x(gate_h))
+        if lang_xt_pre is None:
+            h_lang, c_lang = self.lang_lstm(
+                torch.cat([xt, gate * att_feat], dim=-1), prev_h, c_lang)
+        else:
+            h_lang, c_lang = self.lang_lstm(
+                gate * att_feat, prev_h, c_lang, pre=lang_xt_pre,
+                pre_width=c.word_embed_size)
+        return h_lang, (h_mod, c_mod, h_lang, c_lang), dpos, module_weights
 
 
 class DynamicSpeaker(nn.Module):
@@ -60,13 +113,142 @@ class DynamicSpeaker(nn.Module):
     def _reset(self, gen):
         self.word_emb.copy_(normal_table(self.word_emb.shape, gen))
 
-    def _fused(self, feat_bef, feat_diff, feat_aft):
-        """fused = relu(embed([bef, diff, aft])) [B, E] and the stacked
-        feats [B, 3, D] (bef, diff, aft), in the compute dtype."""
+    def _fused(self, feat_bef, feat_diff, feat_aft,
+               gen: Optional[torch.Generator] = None):
+        """fused = relu(embed([bef, diff, aft])) [B, E] (dropped when a
+        generator is given) and the stacked feats [B, 3, D] (bef, diff,
+        aft), in the compute dtype."""
         cast = self.policy.cast_compute
         bef, dif, aft = cast(feat_bef), cast(feat_diff), cast(feat_aft)
-        fused = torch.relu(self.embed(torch.cat([bef, dif, aft], dim=-1)))
+        fused = dropout(
+            torch.relu(self.embed(torch.cat([bef, dif, aft], dim=-1))),
+            self.cfg.drop_prob_lm, gen)
         return fused, torch.stack([bef, dif, aft], dim=1)
+
+    def _embed_word(self, it, mask=None):
+        """relu(word_emb[it]) in the compute dtype, then the step's
+        dropout mask (Embedding -> ReLU -> Dropout). F.embedding, not
+        indexing: its gradient sums repeated tokens in a fixed order on
+        the CPU too."""
+        x = torch.relu(self.policy.cast_compute(
+            F.embedding(it.long(), self.word_emb)))
+        return apply_mask(x, mask, 1.0 - self.cfg.drop_prob_lm)
+
+    def _out_logprobs(self, h_lang, dpos, mask=None):
+        """Answer and POS log-probs of a step, in the softmax dtype; the
+        answer head reads h_lang through the step's dropout mask."""
+        p = self.policy
+        out = apply_mask(h_lang, mask, 1.0 - self.cfg.drop_prob_lm)
+        logp = torch.log_softmax(p.cast_softmax(self.logit(out)), dim=-1)
+        return logp, torch.log_softmax(p.cast_softmax(dpos), dim=-1)
+
+    def _step_masks(self, T, B, gen, device):
+        """Every dropout mask of the T steps, drawn up front in one go
+        per site: word [T, B, W], vpos [T, B, R], dpos [T, B, P], gate_h
+        [T, B, 2R+D] and out [T, B, R] (bool, True = kept). Drawing them
+        outside the step keeps a recomputed step (remat) on its masks."""
+        c = self.cfg
+        keep_lm = 1.0 - c.drop_prob_lm
+        sizes = (c.word_embed_size, c.rnn_size, c.pos_classes,
+                 2 * c.rnn_size + c.input_dim, c.rnn_size)
+        keeps = (keep_lm, keep_lm, 1.0 - POS_DROPOUT, keep_lm, keep_lm)
+        return [torch.rand(T, B, n, generator=gen, device=device) < k
+                for n, k in zip(sizes, keeps)]
+
+    def teacher_forcing(self, feat_bef, feat_aft, feat_diff, seq,
+                        ss_prob: float = 0.0,
+                        gen: Optional[torch.Generator] = None,
+                        ss_gen: Optional[torch.Generator] = None
+                        ) -> Dict[str, torch.Tensor]:
+        """Teacher-forced log-probs: seq [B, T+1] (seq[:, 0] = <start>)
+        -> logprobs [B, T, V], pos_logprobs [B, T, P], module_weights
+        [B, T, 3]; step i predicts seq[:, i + 1]. T follows seq, so a
+        batch trimmed to a length bucket runs a shorter loop.
+
+        gen: dropout draws (None: no dropout). ss_gen: scheduled
+        sampling draws, used when gen is given and ss_prob > 0: from
+        step 1 on, each row's input is replaced with probability ss_prob
+        by a categorical draw from the previous step's log-probs.
+
+        cfg.train_hoist runs fused @ module_att_lstm.w_ih[:E] once and
+        the T word projections as one product (no effect under
+        scheduled sampling). cfg.remat: 'none' keeps every step's
+        activations for the backward, 'full' recomputes each step
+        (`torch.utils.checkpoint`), 'dots' keeps the step's matrix
+        products and recomputes the rest; the gradients are the same.
+        cfg.scan_unroll has no meaning for this Python loop and is
+        ignored."""
+        c, p = self.cfg, self.policy
+        cast = p.cast_compute
+        B, T = feat_bef.shape[0], seq.shape[1] - 1
+        dev = feat_bef.device
+        train = gen is not None
+        use_ss = train and ss_prob > 0.0
+        fused, feats = self._fused(feat_bef, feat_diff, feat_aft, gen)
+        masks = (self._step_masks(T, B, gen, dev) if train
+                 else [[None] * T] * 5)
+        tokens = seq[:, :T].long().t()                        # [T, B]
+        if use_ss:
+            coins = torch.rand(T, B, generator=ss_gen, device=dev)
+            noise = torch.rand(T, B, c.vocab_size, generator=ss_gen,
+                               device=dev)
+        hoist = c.train_hoist and not use_ss
+        mod_pre = lang_pre = None
+        if hoist:
+            core = self.core
+            mod_pre = p.mm(fused, cast(core.module_att_lstm.w_ih)[
+                :c.embed_dim])
+            emb = torch.relu(cast(F.embedding(tokens, self.word_emb)))
+            if train:
+                emb = apply_mask(emb, masks[0], 1.0 - c.drop_prob_lm)
+            lang_pre = p.mm(emb, cast(core.lang_lstm.w_ih)[
+                :c.word_embed_size])                          # [T, B, 4R]
+
+        def step(it, state, m_word, m_vpos, m_dpos, m_gate, m_out, lpre):
+            core_masks = None if m_vpos is None else (m_vpos, m_dpos, m_gate)
+            if lpre is not None:
+                h_lang, state, dpos, mw = self.core(
+                    None, fused, feats, state, core_masks, mod_pre, lpre)
+            else:
+                xt = self._embed_word(it, m_word)
+                h_lang, state, dpos, mw = self.core(
+                    xt, fused, feats, state, core_masks)
+            logp, logp_pos = self._out_logprobs(h_lang, dpos, m_out)
+            return (*state, logp, logp_pos, mw)
+
+        run = step
+        if train and c.remat == "full":
+            def run(*args):
+                return checkpoint.checkpoint(step, *args, use_reentrant=False)
+        elif train and c.remat == "dots":
+            def run(*args):
+                return checkpoint.checkpoint(
+                    step, *args, use_reentrant=False,
+                    context_fn=_keep_products)
+        elif c.remat not in ("none", "full", "dots"):
+            raise ValueError(f"unknown speaker.remat {c.remat!r}")
+
+        z = torch.zeros(B, c.rnn_size, dtype=p.compute_dtype, device=dev)
+        state = (z, z, z, z)
+        logps, logps_pos, mws = [], [], []
+        for i in range(T):
+            it = tokens[i]
+            if use_ss and i >= 1:
+                # Gumbel-max: a categorical draw from the last log-probs
+                prev = logps[-1].detach()
+                gumbel = -torch.log(-torch.log(
+                    noise[i].clamp(min=torch.finfo(noise.dtype).tiny)))
+                sample = torch.argmax(prev + gumbel, dim=-1)
+                it = torch.where(coins[i] < ss_prob, sample, it)
+            out = run(it, state, *(m[i] for m in masks),
+                      None if lang_pre is None else lang_pre[i])
+            state = out[:4]
+            logps.append(out[4])
+            logps_pos.append(out[5])
+            mws.append(out[6])
+        return {"logprobs": torch.stack(logps, dim=1),
+                "pos_logprobs": torch.stack(logps_pos, dim=1),
+                "module_weights": torch.stack(mws, dim=1)}
 
     def decode_weights(self) -> Dict[str, torch.Tensor]:
         """The decode weights in the compute dtype, prepared once per
@@ -84,3 +266,18 @@ class DynamicSpeaker(nn.Module):
         fused, feats = self._fused(feat_bef, feat_diff, feat_aft)
         return greedy_decode(self.decode_weights(), self.cfg, self.policy,
                              fused, feats)
+
+
+#: the matrix products whose outputs remat 'dots' keeps
+_PRODUCTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+             torch.ops.aten.addmm.default, torch.ops.aten.matmul.default}
+
+
+def _keep_products():
+    """Selective-checkpoint contexts that save the outputs of the matrix
+    products and recompute everything else (remat 'dots')."""
+    def policy(ctx, op, *args, **kwargs):
+        return (checkpoint.CheckpointPolicy.MUST_SAVE if op in _PRODUCTS
+                else checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return checkpoint.create_selective_checkpoint_contexts(policy)

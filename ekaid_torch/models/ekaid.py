@@ -8,9 +8,13 @@ A batch is a dict of padded arrays (numpy or torch):
   d_sem_adj / ...     [B, P, P]   semantic adjacency labels 0..2
   d_bb / q_bb         [B, N, 4]   boxes
   question            [B, Lq]     question tokens
+  labels              [B, T+1]    <start> + answer tokens (training)
+  masks               [B, T+1]    1 over tokens + the EOS slot (training)
 
-Only the eval path (`encode`, greedy `decode`) is ported; losses,
-teacher forcing and beam search are not yet.
+`forward` is the training path: the encoder with gradients, then
+teacher forcing; the losses below turn its outputs into the training
+objective. `encode` and the greedy `decode` run without gradients.
+Beam search is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ekaid_torch.utils.dtypes import F32, Policy
 
 _INPUTS = ("d_feats", "q_feats", "d_adj", "q_adj", "d_sem_adj", "q_sem_adj",
            "d_bb", "q_bb", "question")
+_TRAIN_INPUTS = _INPUTS + ("labels", "masks")
 
 
 class EkaidModel(nn.Module):
@@ -57,10 +62,12 @@ class EkaidModel(nn.Module):
     def device(self) -> torch.device:
         return self.speaker.word_emb.device
 
-    def tensors(self, batch) -> Dict[str, torch.Tensor]:
-        """The model inputs of `batch` as tensors on the model's device."""
+    def tensors(self, batch, train: bool = False
+                ) -> Dict[str, torch.Tensor]:
+        """The model inputs of `batch` (with labels and masks when
+        `train`) as tensors on the model's device."""
         return {k: torch.as_tensor(batch[k], device=self.device)
-                for k in _INPUTS}
+                for k in (_TRAIN_INPUTS if train else _INPUTS)}
 
     def _adjacencies(self, b):
         c = self.cfg.change_detector
@@ -71,13 +78,30 @@ class EkaidModel(nn.Module):
                 broadcast_adjacency(b["d_sem_adj"], c.sem_label_num, n, dt),
                 broadcast_adjacency(b["q_sem_adj"], c.sem_label_num, n, dt))
 
-    @torch.no_grad()
-    def encode(self, batch) -> Dict[str, torch.Tensor]:
-        b = self.tensors(batch)
+    def _encode(self, b, gen=None) -> Dict[str, torch.Tensor]:
         d_adj, q_adj, d_sem, q_sem = self._adjacencies(b)
         return self.change_detector(
             b["d_feats"], b["q_feats"], d_adj, q_adj, d_sem, q_sem,
-            b["d_bb"], b["q_bb"], b["question"])
+            b["d_bb"], b["q_bb"], b["question"], gen)
+
+    @torch.no_grad()
+    def encode(self, batch) -> Dict[str, torch.Tensor]:
+        return self._encode(self.tensors(batch))
+
+    def forward(self, batch, ss_prob: float = 0.0,
+                gen: Optional[torch.Generator] = None,
+                ss_gen: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Training path with gradients: the encoder's outputs plus the
+        teacher-forced logprobs [B, T, V], pos_logprobs and
+        module_weights [B, T, 3]. gen: dropout draws (None: no dropout);
+        ss_gen: scheduled sampling draws (see `teacher_forcing`)."""
+        b = self.tensors(batch, train=True)
+        enc = self._encode(b, gen)
+        dec = self.speaker.teacher_forcing(
+            enc["feat_bef"], enc["feat_aft"], enc["feat_diff"], b["labels"],
+            ss_prob=ss_prob, gen=gen, ss_gen=ss_gen)
+        return {**enc, **dec}
 
     @torch.no_grad()
     def decode(self, batch) -> Dict[str, torch.Tensor]:
@@ -87,3 +111,66 @@ class EkaidModel(nn.Module):
         dec = self.speaker.sample(enc["feat_bef"], enc["feat_aft"],
                                   enc["feat_diff"])
         return {**enc, **dec}
+
+
+def language_model_loss(logprobs, targets, masks, denom=None):
+    """Masked NLL: -sum(logp[target] * mask) / sum(mask). logprobs
+    [B, T, V]; targets and masks [B, >=T], cut to T. denom replaces the
+    mask sum (gradient accumulation passes the whole batch's, so the
+    microbatch losses sum to the batch loss)."""
+    T = logprobs.shape[1]
+    targets = targets[:, :T].long()
+    masks = masks[:, :T].to(logprobs.dtype)
+    picked = torch.gather(logprobs, -1, targets[..., None])[..., 0]
+    if denom is None:
+        denom = torch.clamp(masks.sum(), min=1.0)
+    return -(picked * masks).sum() / denom
+
+
+def attention_regularizer(att_bef, att_aft, batch=None):
+    """(sum(att_bef) + sum(att_aft)) / (2 * batch); batch defaults to
+    att_bef's leading size (accumulation passes the whole batch's)."""
+    b = att_bef.shape[0] if batch is None else batch
+    return (att_bef.float().sum() + att_aft.float().sum()) / (2.0 * b)
+
+
+def entropy_loss(module_weights, masks, batch=None):
+    """Module-attention entropy: -sum(w log w * mask) / batch, with
+    module_weights [B, T, 3] and masks [B, >=T]."""
+    t = module_weights.shape[1]
+    m = masks[:, :t].float()
+    w = module_weights.float()
+    b = w * torch.log(torch.clamp(w, min=1e-12))
+    denom = module_weights.shape[0] if batch is None else batch
+    return -(b * m[..., None]).sum() / denom
+
+
+def reward_loss(logprobs_taken, seq, reward):
+    """Policy-gradient loss: -sum(logp * reward * mask) / sum(mask), the
+    mask covering each row up to and including its first 0."""
+    mask = (seq > 0).float()
+    mask = torch.cat([torch.ones_like(mask[:, :1]), mask[:, :-1]], dim=1)
+    out = -logprobs_taken * reward * mask
+    return out.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def total_loss(outputs, batch, att_reg_weight: float = 2.5e-3,
+               entropy_weight: float = 0.0, lang_denom=None,
+               batch_denom=None):
+    """NLL over labels[:, 1:] + att_reg_weight * the attention term,
+    minus entropy_weight * the module-attention entropy when that weight
+    is set. Returns (loss, aux) with aux speaker_loss, att_reg and, with
+    an entropy weight, entropy. lang_denom / batch_denom: the whole
+    batch's normalisers, for gradient accumulation."""
+    lang = language_model_loss(outputs["logprobs"], batch["labels"][:, 1:],
+                               batch["masks"][:, 1:], denom=lang_denom)
+    att = attention_regularizer(outputs["att_bef"], outputs["att_aft"],
+                                batch=batch_denom)
+    loss = lang + att_reg_weight * att
+    aux = {"speaker_loss": lang, "att_reg": att}
+    if entropy_weight:
+        ent = entropy_loss(outputs["module_weights"],
+                           batch["masks"][:, 1:], batch=batch_denom)
+        loss = loss - entropy_weight * ent
+        aux["entropy"] = ent
+    return loss, aux

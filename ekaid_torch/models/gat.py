@@ -13,6 +13,10 @@ Counterpart of `ekaid_tpu/models/gat.py`:
   * Relation encoders: the pooled question vector is concatenated to
     every node (zeroed on all-zero nodes), and the GAT output is added
     back to the nodes as a residual.
+
+Training-mode dropout (rate `GAT_DROPOUT`) precedes every FCNet product
+but the label bias and follows the direction reduction; it runs when a
+forward is given a generator.
 """
 
 from __future__ import annotations
@@ -20,10 +24,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ekaid_torch.models.layers import DenseT, FCNet
+from typing import Optional
+
+from ekaid_torch.models.layers import DenseT, FCNet, dropout
 from ekaid_torch.utils.dtypes import F32, Policy
 
 NEG_INF = -9e15
+GAT_DROPOUT = 0.2
 
 
 def q_expand_v_cat(q, v):
@@ -42,29 +49,32 @@ class _GraphAttention(nn.Module):
         self.num_heads = num_heads
         self.nongt_dim = nongt_dim
         self.policy = policy
-        self.query = FCNet([feat_dim, feat_dim], act=None, policy=policy)
-        self.key = FCNet([feat_dim, feat_dim], act=None, policy=policy)
+        d = GAT_DROPOUT
+        self.query = FCNet([feat_dim, feat_dim], act=None, dropout=d,
+                           policy=policy)
+        self.key = FCNet([feat_dim, feat_dim], act=None, dropout=d,
+                         policy=policy)
         self.pair_pos_fc1 = (FCNet([pos_emb_dim, num_heads], act=None,
-                                   policy=policy)
+                                   dropout=d, policy=policy)
                              if pos_emb_dim > 0 else None)
         self.linear_out_2 = DenseT(num_heads * feat_dim, feat_dim,
                                    policy=policy)
 
-    def forward(self, roi_feat, cond_adj, pos_emb, label_bias):
+    def forward(self, roi_feat, cond_adj, pos_emb, label_bias, gen=None):
         p = self.policy
         B, N, D = roi_feat.shape
         M = min(self.nongt_dim, N)
         H = self.num_heads
         dh = D // H
         nongt_feat = roi_feat[:, :M]
-        qh = self.query(roi_feat).reshape(B, N, H, dh)
-        kh = self.key(nongt_feat).reshape(B, M, H, dh)
+        qh = self.query(roi_feat, gen).reshape(B, N, H, dh)
+        kh = self.key(nongt_feat, gen).reshape(B, M, H, dh)
         aff = p.cast_compute(torch.einsum("bnhd,bmhd->bnhm", qh.float(),
                                           kh.float()))
         aff = p.cast_softmax(aff) * (1.0 / (dh ** 0.5))
         if self.pair_pos_fc1 is not None:
             pos_w = torch.relu(p.cast_softmax(
-                self.pair_pos_fc1(p.cast_compute(pos_emb))))
+                self.pair_pos_fc1(p.cast_compute(pos_emb), gen)))
             aff = aff + torch.log(torch.clamp(pos_w.permute(0, 1, 3, 2),
                                               min=1e-6))
         edge = cond_adj[:, :, None, :] > 0
@@ -95,34 +105,37 @@ class GAttNet(nn.Module):
         self.nongt_dim = nongt_dim
         self.policy = policy
         self.self_weights = FCNet([in_feat_dim, out_feat_dim], act=None,
-                                  policy=policy)
+                                  dropout=GAT_DROPOUT, policy=policy)
         self.bias = FCNet([label_num, 1], act=None, use_bias=label_bias,
                           policy=policy)
         for d in self.dirs:
             self.add_module(f"neighbor_net_{d}", _GraphAttention(
                 out_feat_dim, num_heads, nongt_dim, pos_emb_dim, policy))
 
-    def _run_dir(self, d, self_feat, adj_onehot, pos_emb):
+    def _run_dir(self, d, self_feat, adj_onehot, pos_emb, gen):
         M = min(self.nongt_dim, self_feat.shape[1])
         adj_d = adj_onehot if d == 0 else adj_onehot.transpose(1, 2)
         adj_d = adj_d[:, :, :M, :]
         cond = adj_d.sum(dim=-1)
         lbias = self.bias(self.policy.cast_compute(adj_d))[..., 0]
         layer = getattr(self, f"neighbor_net_{d}")
-        return layer(self_feat, cond, pos_emb, lbias)
+        return layer(self_feat, cond, pos_emb, lbias, gen)
 
-    def forward(self, v_feat, adj_onehot, pos_emb=None):
+    def forward(self, v_feat, adj_onehot, pos_emb=None,
+                gen: Optional[torch.Generator] = None):
         """v_feat [B, N, in]; adj_onehot [B, N, N, label_num];
-        pos_emb [B, N, M, pos_emb_dim] or None."""
-        self_feat = self.self_weights(v_feat)
+        pos_emb [B, N, M, pos_emb_dim] or None; gen: dropout draws
+        (None: no dropout)."""
+        self_feat = self.self_weights(v_feat, gen)
         if self.dir_reduce == "reference":
             out = 2.0 * self._run_dir(self.dirs[0], self_feat, adj_onehot,
-                                      pos_emb)
+                                      pos_emb, gen)
         else:
             out = self_feat
             for d in self.dirs:
-                out = out + self._run_dir(d, self_feat, adj_onehot, pos_emb)
-        return torch.relu(out)
+                out = out + self._run_dir(d, self_feat, adj_onehot, pos_emb,
+                                          gen)
+        return torch.relu(dropout(out, GAT_DROPOUT, gen))
 
 
 class ExplicitRelationEncoder(nn.Module):
@@ -136,10 +149,10 @@ class ExplicitRelationEncoder(nn.Module):
                            nongt_dim=nongt_dim, num_heads=num_heads,
                            dir_reduce=dir_reduce, policy=policy)
 
-    def forward(self, v, adj_onehot, q):
+    def forward(self, v, adj_onehot, q, gen=None):
         if self.v_transform is not None:
-            v = self.v_transform(v)
-        return v + self.gat(q_expand_v_cat(q, v), adj_onehot)
+            v = self.v_transform(v, gen)
+        return v + self.gat(q_expand_v_cat(q, v), adj_onehot, gen=gen)
 
 
 class ImplicitRelationEncoder(nn.Module):
@@ -159,10 +172,10 @@ class ImplicitRelationEncoder(nn.Module):
                            pos_emb_dim=pos_emb_dim, dir_reduce=dir_reduce,
                            policy=policy)
 
-    def forward(self, v, pos_emb, q):
+    def forward(self, v, pos_emb, q, gen=None):
         if self.v_transform is not None:
-            v = self.v_transform(v)
+            v = self.v_transform(v, gen)
         B, N = v.shape[0], v.shape[1]
         ones_adj = torch.ones(B, N, N, 1, dtype=self.policy.compute_dtype,
                               device=v.device)
-        return v + self.gat(q_expand_v_cat(q, v), ones_adj, pos_emb)
+        return v + self.gat(q_expand_v_cat(q, v), ones_adj, pos_emb, gen)

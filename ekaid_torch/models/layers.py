@@ -6,8 +6,11 @@ gates (i, f, g, o), GRU gates (r, z, n)), so a flax param tree maps
 onto `state_dict()` keys one to one (`ekaid_torch/convert.py`).
 
 Every product goes through `Policy.mm`: operands in the compute dtype,
-f32 accumulation, one rounding to the compute dtype. The modules are
-inference-only in this slice, so dropout is the identity everywhere.
+f32 accumulation, one rounding to the compute dtype.
+
+Dropout is inverted dropout (`dropout`): a module drops only when its
+forward is given a `torch.Generator` on the tensor's device, and is the
+identity without one (eval, decode, and the deterministic train step).
 """
 
 from __future__ import annotations
@@ -18,6 +21,34 @@ import torch
 from torch import nn
 
 from ekaid_torch.utils.dtypes import F32, Policy
+
+
+def dropout(x: torch.Tensor, rate: float,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate). The identity when `gen` is None
+    or rate <= 0. The mask is drawn from `gen`, which must live on x's
+    device (`F.dropout` takes no generator)."""
+    if gen is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return apply_mask(x, mask, keep)
+
+
+def apply_mask(x: torch.Tensor, mask: Optional[torch.Tensor],
+               keep: float) -> torch.Tensor:
+    """x / keep where mask, else 0; the identity for mask None."""
+    if mask is None:
+        return x
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def frobenius(x: torch.Tensor) -> torch.Tensor:
+    """The Frobenius norm of x, sqrt(sum(x * x)), on either device (on
+    the CPU, `torch.linalg.norm` of an f32 tensor of millions of
+    elements strays far past f32 rounding)."""
+    return torch.sqrt(torch.sum(x * x))
 
 
 def _uniform(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
@@ -77,6 +108,11 @@ class WNDense(nn.Module):
     def _reset(self, gen):
         fan_in = self.v.shape[0]
         self.v.copy_(_uniform(self.v.shape, fan_in, gen))
+        # g starts at torch.linalg.norm(v) on the CPU, where init runs:
+        # up to ~7e-5 off `frobenius` on kernels of millions of elements,
+        # so kernel = v only to that. It is the draw K1's gates in
+        # chip_smoke.py are held on; g from `frobenius` re-draws the
+        # weights and trips one of them (ROADMAP section 3, open).
         self.g.copy_(torch.linalg.norm(self.v.float()))
         if self.bias is not None:
             self.bias.copy_(_uniform(self.bias.shape, fan_in, gen))
@@ -84,7 +120,7 @@ class WNDense(nn.Module):
     def forward(self, x):
         p = self.policy
         v = self.v.float()
-        kernel = (self.g.float() / torch.linalg.norm(v)) * v
+        kernel = (self.g.float() / frobenius(v)) * v
         y = p.mm(p.cast_compute(x), p.cast_compute(kernel))
         if self.bias is not None:
             y = y + p.cast_compute(self.bias)
@@ -95,21 +131,24 @@ _ACTS = {"relu": torch.relu}
 
 
 class FCNet(nn.Module):
-    """WNDense(-> act) stack over dims [in, h1, ..., out]; the
+    """Dropout -> WNDense (-> act) stack over dims [in, h1, ..., out]; the
     submodules are named WNDense_0, WNDense_1, ... as in flax."""
 
     def __init__(self, dims: Sequence[int], act: Optional[str] = "relu",
-                 use_bias: bool = True, policy: Policy = F32):
+                 dropout: float = 0.0, use_bias: bool = True,
+                 policy: Policy = F32):
         super().__init__()
         self.act = _ACTS[act.lower()] if act else None
+        self.dropout = dropout
         dims = list(dims)
         self.n = len(dims) - 1
         for i in range(self.n):
             self.add_module(f"WNDense_{i}", WNDense(
                 dims[i], dims[i + 1], use_bias=use_bias, policy=policy))
 
-    def forward(self, x):
+    def forward(self, x, gen: Optional[torch.Generator] = None):
         for i in range(self.n):
+            x = dropout(x, self.dropout, gen)
             x = getattr(self, f"WNDense_{i}")(x)
             if self.act is not None:
                 x = self.act(x)

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -14,3 +15,12 @@ def resolve_device(device="cuda") -> torch.device:
             "ekaid_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def host_to_device(array, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on `device`: copied from pinned memory
+    without blocking the host for a CUDA device, as is for the CPU."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t

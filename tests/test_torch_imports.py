@@ -23,7 +23,7 @@ import chip_smoke
 import torch, statistics, subprocess, threading, argparse
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                       "ekaid_tpu"))
+                                       "orbax", "ekaid_tpu"))
 host = sorted(m for m in sys.modules
               if m.split(".")[0] in ("h5py", "PIL", "pandas"))
 print(json.dumps({"modules": names, "loaded": loaded, "host": host}))
@@ -46,7 +46,11 @@ def test_port_imports_no_jax_and_no_reference_package(probe):
                  "models.detector.heads", "models.detector.faster_rcnn",
                  "ops.nms", "ops.roi_align", "ops.roi_kernels",
                  "utils.platform", "extract.pipeline", "extract.runner",
-                 "ops.nms_kernel", "scripts.bench_nms"):
+                 "ops.nms_kernel", "scripts.bench_nms", "train.step",
+                 "train.train", "train.score", "data.pipeline",
+                 "data.device_cache", "data.vocab", "metrics.caption",
+                 "metrics.coco", "metrics.meteor_resources",
+                 "utils.logging", "utils.checkpoint"):
         assert f"ekaid_torch.{name}" in probe["modules"], name
     assert probe["loaded"] == []
 
@@ -62,5 +66,6 @@ def test_port_sources_name_no_reference_import():
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]):
-                assert not words[1].startswith(("jax", "flax", "ekaid_tpu")), \
+                assert not words[1].startswith(
+                    ("jax", "flax", "optax", "orbax", "ekaid_tpu")), \
                     f"{path}: {line}"
