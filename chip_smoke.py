@@ -17,18 +17,24 @@ Phases, each fatal on failure:
      run in a fixed order); one-step decodes (`scratch=True`) whose
      per-phase intermediates are held against the plain version's:
      f32 within 1e-5 of each tensor's largest magnitude, bf16 gaps in
-     ulps recorded, zx and h_mod within 2 ulps; records, not gates, on
-     ROLLED_SETS more bf16 parameter sets: K1's step-0 gap to the plain
-     version beside the CPU's plain version's, and for the largest gap
-     the one-step intermediates of both in ulps; and records of the f32
-     and bf16 comparisons on the inputs that two other draws of the
-     weight norm give (g at init from the forward's sum of squares, and
-     both from that sum in f64);
-  4. the main path: an `EkaidModel` at flagship width under the bf16
-     policy behind the batch-1 `InferenceEngine`, answering questions
-     over the synthetic pair store, then one batch-64 decode; the
-     kernel's launch count must equal the number of decodes, and each
-     answer is held against the plain version on the same inputs;
+     ulps recorded, zx and h_mod within 2 ulps; on ROLLED_SETS more
+     parameter sets, f32 decodes (plain and with the decoding
+     constraint) gated under the near-tie rule (`near_tie_agree`: two
+     decodes agree if each row's tokens are equal to the end or up to
+     the first step where the plain version's two best logprobs are
+     closer than K1's f32 logprob error above, floor 1e-6), and records
+     of bf16: K1's step-0 gap to the plain version beside the CPU's
+     plain version's, and for the largest gap the one-step
+     intermediates of both in ulps; on the inputs that two other draws
+     of the weight norm give (g at init from the forward's sum of
+     squares, and both from that sum in f64), the f32 decodes gated
+     under the near-tie rule and the bf16 comparisons recorded;
+  4. the main path: the model of a synthetic trainer (phase 3's bf16
+     model: the same config, vocab and seed) behind the batch-1
+     `InferenceEngine(trainer)`, answering questions over the eval
+     split, then one batch-64 decode; the kernel's launch count must
+     equal the number of decodes, and each answer is held against the
+     plain version on the same inputs;
   5. timings of the kernel, its plain version, its bound, the batch-64
      decode and the batch-1 answer;
   6. the ROIAlign kernels K2 (canvas) and K3 (patch), which compute the
@@ -100,7 +106,32 @@ Phases, each fatal on failure:
      forward / backward / optimizer split, peak memory, eval pairs/s,
      K1 per eval decode) and one step under torch.profiler (the card's
      busy share of the step, its device activities, the top kernels).
-     K1's launches here add to its `kernels` entry.
+     K1's launches here add to its `kernels` entry;
+ 11. the inference entry points on phase 10's snapshots (learnable
+     corpus, flagship widths, bf16): (a) the eval driver
+     (`train/test.py::run_test`) on the step-8 snapshot over EVAL_B
+     batches of 64 of the learnable eval split, each batch's step-0
+     tokens equal to the plain decode's and K1 launched once a batch,
+     then timed again unchecked (the same answers), its results file
+     through `score.main` (-a, then the caption
+     metrics, both equal to the driver's scores), then `test.main`
+     with --synthetic --max_batches 2; (b) beam search
+     (`Trainer.evaluate(beam_size=3)`, plain torch, no K1 launch) timed
+     on one batch, and a beam-3 f32 decode of 8 pairs on the card and
+     on the CPU, rows equal except where the CPU's ranking had a
+     near-tied cut; (c) `CoalescingEngine(coalesce_batch=16)` behind
+     `make_handler` on 127.0.0.1: 16 client threads post 128
+     /question requests (varied questions, some with detail), every
+     reply equal to its own row of its batch decoded again by K1, each
+     served batch's step-0 tokens equal to the plain decode's, K1's
+     launches equal to the batches plus the warm-up, /health /sample /
+     /refresh answered, drained; recorded: coalesced answers equal to
+     batch-1 answers, requests/s, latency p50/p99, batches; then the
+     plain batch-1 engine, 16 requests one at a time; (d) the
+     extraction runner's --ana_ckpt/--dis_ckpt on `.pt` state dicts of
+     the seeded detectors, its records bit-equal to the in-process
+     path's on the same weights and images, K2 launched twice. K1's
+     and K2's launches here add to their `kernels` entries.
 Prints one `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}, after a `record:` line with every number
 as JSON. Without a CUDA device, or outside the repository, it exits
@@ -137,7 +168,11 @@ BF16_BATCHES = BATCHES + (BF16_GROUPS_B,)
 # magnitude; bf16 zx and h_mod, whose step-0 inputs are equal in both
 ONE_STEP_F32 = 1e-5
 BF16_STEP0_ULPS = 2
-ROLLED_SETS = 8                    # K1's bf16 records on other weights
+ROLLED_SETS = 8                    # K1 on other weights: f32 gated, bf16
+                                   # recorded
+# a near-tie: the plain version's two best logprobs closer than K1's f32
+# logprob error measured in phase 3, or than this floor
+NEAR_TIE_FLOOR = 1e-6
 ROI_F32_GATE = 1e-5                # K2/K3 vs plain, f32 max abs error
 EXTRACT_BATCHES = 3
 # ROIs whose long side takes the level bump (on a 1024^2 image)
@@ -165,6 +200,14 @@ UPDATE_TOL = 1e-2
 UPDATE_MIN_SHARE = 0.25
 TRAIN_STEPS = 8                    # two snapshots, at 4 and 8
 EVAL_BATCHES = 4
+# phase 11: the inference entry points
+EVAL_B = 8                         # eval-driver batches of 64
+BEAM = 3
+BEAM_PAIRS = 8                     # the card-vs-CPU f32 beam decode
+SERVE_REQUESTS = 128
+SERVE_CLIENTS = 16
+PLAIN_REQUESTS = 16
+DET_IMAGES = 8
 
 
 def log(msg: str) -> None:
@@ -325,6 +368,58 @@ def bf16_ulp(x):
     import torch
     mag = x.abs().clamp(min=torch.finfo(torch.float32).tiny)
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def top2_gap(logits, t: int, banned=None):
+    """The gap between the two best logprobs of f32 `logits` [B, V] at
+    step t, in f64, with the step's bans (NULL at step 0; `banned` [B],
+    the previous tokens under the decoding constraint)."""
+    import torch
+    lg = logits.double()
+    lp = lg - torch.logsumexp(lg, -1, keepdim=True)
+    if t == 0:
+        lp[:, 0] = -math.inf
+    elif banned is not None:
+        lp[torch.arange(len(lp), device=lp.device), banned.long()] = -math.inf
+    top = torch.topk(lp, 2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def near_tie_agree(w, sp, policy, fused, feats, ref, out, tol: float,
+                   what: str) -> dict:
+    """Two greedy decodes agree if each row's tokens are equal to the
+    end, or up to the first step where the plain version's two best
+    logprobs are closer than `tol` (a near-tie: from there the rows may
+    go apart). A difference before any such step fails. `ref` is the
+    plain version's decode of (w, sp, policy, fused, feats). Returns
+    the rows that differ, each with its first differing step, its first
+    near-tie and that tie's gap."""
+    from ekaid_torch.models.greedy_decode import greedy_decode_plain
+    d = (ref["seq"] != out["seq"]).cpu()
+    rows = [int(r) for r in d.any(1).nonzero()[:, 0]]
+    r = {"rows_differ": len(rows), "rows": []}
+    if not rows:
+        return r
+    first = {row: int(d[row].nonzero()[0]) for row in rows}
+    gaps = []
+    for t in range(max(first.values()) + 1):
+        lg = greedy_decode_plain(w, sp.replace(seq_length=t + 1), policy,
+                                 fused, feats, scratch=True)["logits"]
+        banned = ref["seq"][:, t - 1] if (t and sp.decoding_constraint) \
+            else None
+        gaps.append(top2_gap(lg, t, banned).cpu())
+    for row in rows:
+        ties = [t for t in range(first[row] + 1) if gaps[t][row] < tol]
+        item = {"row": row, "step": first[row],
+                "near_tie_step": ties[0] if ties else None,
+                "gap": float(gaps[ties[0] if ties else first[row]][row])}
+        r["rows"].append(item)
+        if not ties:
+            raise AssertionError(
+                f"{what}: row {row} differs at step {first[row]} with no "
+                f"near-tie (< {tol:.3g}) up to it; the plain version's "
+                f"top-2 gap there is {item['gap']:.3g}")
+    return r
 
 
 def boundary_rois(n_ulps: int = BOUNDARY_ULPS, scale0: float = 0.25):
@@ -1136,6 +1231,33 @@ def one_step(rec: dict, w32, w16, sp, fx32, fx16) -> None:
         f"{BF16_STEP0_ULPS}")
 
 
+def rolled_sets_f32(rec: dict, w32, sp, fused, feats) -> None:
+    """Gates: K1 at f32 on the ROLLED_SETS parameter sets (the product
+    weights rolled by 1..ROLLED_SETS rows), plain and with the decoding
+    constraint, against its plain version under the near-tie rule."""
+    from ekaid_torch.models.greedy_decode import (
+        PRODUCT_WEIGHTS, greedy_decode, greedy_decode_plain)
+    from ekaid_torch.utils.dtypes import F32
+    products = {n for names in PRODUCT_WEIGHTS.values() for n in names}
+    tol = rec["near_tie_tol"]
+    r = rec["rolled_sets_f32"] = []
+    for shift in range(1, ROLLED_SETS + 1):
+        w = {k: v.roll(shift, 0).contiguous() if k in products else v
+             for k, v in w32.items()}
+        for what, s in (("plain", sp),
+                        ("constraint", sp.replace(decoding_constraint=1))):
+            ref = greedy_decode_plain(w, s, F32, fused, feats)
+            out = greedy_decode(w, s, F32, fused, feats)
+            e = near_tie_agree(w, s, F32, fused, feats, ref, out, tol,
+                               f"rolled set {shift} f32 {what}")
+            r.append({"shift": shift, "decode": what, **e})
+    differ = [(e["shift"], e["decode"], e["rows"]) for e in r
+              if e["rows_differ"]]
+    log(f"  rolled sets 1-{ROLLED_SETS}, f32 B={fused.shape[0]}, plain and "
+        f"constraint: agree under the near-tie rule (tol {tol:.3g}); rows "
+        f"that differ after a near-tie: {differ or 'none'}")
+
+
 def rolled_sets_record(rec: dict, w16, sp, fused16, feats16) -> None:
     """Records, not gates: K1 at bf16 on ROLLED_SETS parameter sets (the
     product weights rolled by 1..ROLLED_SETS rows) against its plain
@@ -1205,15 +1327,14 @@ def rolled_sets_record(rec: dict, w16, sp, fused16, feats16) -> None:
 
 
 def summed_norm_record(rec: dict, cfg, batch) -> None:
-    """Records, not gates: phase 3's K1 comparisons on the inputs that
-    two other draws of the weight norm give: g at init from
-    `layers.frobenius` (the forward's sqrt(sum(v * v))) in place of
-    `torch.linalg.norm` on the CPU; and init and forward both from the
-    sum in f64. For each: the f32 B=64 decodes, plain and with the
-    decoding constraint, against the plain version (tokens that differ
-    and, at the first, the gap between the plain version's two best
-    logprobs), and the bf16 step-0 logprob gap and step-0 tokens at
-    B=64 and BF16_GROUPS_B."""
+    """Phase 3's K1 comparisons on the inputs that two other draws of
+    the weight norm give: g at init from `layers.frobenius` (the
+    forward's sqrt(sum(v * v))) in place of `torch.linalg.norm` on the
+    CPU; and init and forward both from the sum in f64. For each, gated:
+    the f32 B=64 decodes, plain and with the decoding constraint,
+    against the plain version under the near-tie rule (the rows that
+    differ recorded with their first near-tie); recorded: the bf16
+    step-0 logprob gap and step-0 tokens at B=64 and BF16_GROUPS_B."""
     import torch
     from ekaid_torch.data.synthetic import synthetic_batch
     from ekaid_torch.models import layers
@@ -1261,23 +1382,13 @@ def summed_norm_record(rec: dict, cfg, batch) -> None:
                             decoding_constraint=1))):
                         ref = greedy_decode_plain(w, s, F32, f, x)
                         out = greedy_decode(w, s, F32, f, x)
-                        d = ref["seq"] != out["seq"]
-                        item = e[f"f32_B{B}_{what}"] = {
-                            "tokens_differ": int(d.sum())}
-                        if not d.any():
-                            continue
-                        row = int(d.any(1).nonzero()[0])
-                        t = int(d[row].nonzero()[0])
-                        lg = greedy_decode_plain(
-                            w, s.replace(seq_length=t + 1), F32, f, x,
-                            scratch=True)["logits"][row].double()
-                        lp = lg - torch.logsumexp(lg, 0)
-                        if t == 0 or s.decoding_constraint:
-                            lp[0 if t == 0 else int(ref["seq"][row, t - 1])
-                               ] = -math.inf
-                        top = torch.topk(lp, 2).values
-                        item.update(row=row, step=t, plain_top2_gap=float(
-                            top[0] - top[1]))
+                        e[f"f32_B{B}_{what}"] = {
+                            "tokens_differ": int((ref["seq"] != out["seq"])
+                                                 .sum()),
+                            **near_tie_agree(
+                                w, s, F32, f, x, ref, out,
+                                rec["near_tie_tol"],
+                                f"weight norm by {name}, f32 {what}")}
             log(f"  record: weight norm by {name}: " + "; ".join(
                 f"{k} {v}" for k, v in e.items()))
     finally:
@@ -1326,6 +1437,7 @@ def k1_phase(rec: dict, cfg):
             if b == B and what == "plain":
                 rec["f32_steps"] = steps_run(out["seq"])
     rec["f32_max_abs_err"] = max(e["logprobs"] for e in errs)
+    rec["near_tie_tol"] = max(rec["f32_max_abs_err"], NEAR_TIE_FLOOR)
     rec["f32_kernel_ms"] = cuda_ms(
         lambda: greedy_decode(w32, sp, F32, fused, feats), 5)
     log(f"  f32 kernel {rec['f32_kernel_ms']:.3f} ms per decode")
@@ -1385,6 +1497,7 @@ def k1_phase(rec: dict, cfg):
     log(f"  bf16 B={B}: a second decode, after two other parameter sets, "
         "is bit-equal (seq, logprobs, module_weights)")
     one_step(rec, w32, w16, sp, (fused, feats), (fused16, feats16))
+    rolled_sets_f32(rec, w32, sp, fused, feats)
     rolled_sets_record(rec, w16, sp, fused16, feats16)
     summed_norm_record(rec, cfg, batch)
     return m16, batch, fused16, feats16, w16, out16
@@ -1734,8 +1847,396 @@ def train_phase(rec: dict, cfg, device: str = "cuda") -> int:
             "activities; top by device time: " + "; ".join(
                 f"{k['name']} {k['ms']:.2f} ms x{k['launches']:.0f}"
                 for k in prof["top"]))
-    shutil.rmtree(work, ignore_errors=True)
     return rec["train_launches"]
+
+
+def beam_cut_margins(model, batch, beam_size: int) -> list:
+    """`decode_beam` of `model` with every ranking of candidates traced:
+    per step and group, each row's margin between the last candidate kept
+    and the first dropped (the beam search's near-ties). Returns
+    (the decode, the margins [steps, B])."""
+    import torch
+    real, margins = torch.sort, []
+
+    def traced(x, *a, **k):
+        out = real(x, *a, **k)
+        margins.append((out.values[:, beam_size - 1]
+                        - out.values[:, beam_size]).double().cpu())
+        return out
+
+    torch.sort = traced
+    try:
+        out = model.decode_beam(batch, beam_size=beam_size)
+    finally:
+        torch.sort = real
+    return out, torch.stack(margins)
+
+
+class RecordSink(MemorySink):
+    """H5Writer's interface for the extraction runner, in memory (the
+    card's machine has no h5py)."""
+
+    made = []
+
+    def __init__(self, path, num_nodes, feat_dim, adj_pad=100,
+                 feat_dtype="float32", mode="w", run_meta=None):
+        super().__init__()
+        self.n, self.run_meta = 0, run_meta
+        RecordSink.made.append(self)
+
+
+def http(base: str, path: str, payload=None, timeout: float = 60.0):
+    """(status, JSON body) of a request; an HTTP error raises."""
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data,
+                                 {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        body = r.read()
+        return r.status, (json.loads(body) if "json" in r.headers.get(
+            "Content-Type", "") else body)
+
+
+def plain_step0(model, batch):
+    """Step-0 tokens of the plain decode of `batch` on weights built
+    fresh from the model's parameters."""
+    import torch
+    from ekaid_torch.models import greedy_decode as gd
+    sp = model.speaker
+    with torch.no_grad():
+        w = gd.decode_weights(sp, sp.cfg, model.policy)
+        enc = model.encode(batch)
+        fused, feats = sp._fused(enc["feat_bef"], enc["feat_diff"],
+                                 enc["feat_aft"])
+        return gd.greedy_decode_plain(w, sp.cfg, model.policy, fused,
+                                      feats)["seq"][:, 0]
+
+
+def inference_phase(rec: dict, cfg, device: str = "cuda") -> tuple:
+    """Phase 11, the inference entry points on phase 10's snapshots:
+    (a) the eval driver and score analysis, (b) beam search, (c) the
+    coalescing HTTP server and the batch-1 engine, (d) the extraction
+    runner on detector weights read from files. Returns the launches of
+    K1 and of K2 on these paths."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from ekaid_torch.extract import runner
+    from ekaid_torch.extract.pipeline import Extractor
+    from ekaid_torch.models import greedy_decode as gd
+    from ekaid_torch.models.detector import FasterRCNN
+    from ekaid_torch.models.ekaid import EkaidModel
+    from ekaid_torch.models.layers import init_params
+    from ekaid_torch.ops import roi_kernels as rk
+    from ekaid_torch.serving.engine import InferenceEngine
+    from ekaid_torch.serving.server import (CoalescingEngine, Server,
+                                            make_handler)
+    from ekaid_torch.train import score, test as eval_driver
+    from ekaid_torch.train.train import build_synthetic_trainer
+    from ekaid_torch.utils.dtypes import F32
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    work = ROOT / "build" / "train_phase"
+    snaps = work / "a" / "snapshots"
+    tcfg = cfg.replace(train=cfg.train.replace(
+        max_iter=TRAIN_STEPS, snapshot_interval=TRAIN_STEPS // 2))
+    r = rec["inference"] = {}
+    k1 = 0
+
+    # ---- 11a. the eval driver -------------------------------------------
+    bs = tcfg.data.test.batch_size
+    # the learnable corpus holds n_pairs x 8 pairs, a tenth of them in
+    # its test split: EVAL_B full batches
+    tr = build_synthetic_trainer(tcfg, str(work / "c"),
+                                 n_pairs=EVAL_B * bs * 10 // 8,
+                                 corpus="learnable", device=device)
+    model = tr.model
+    decode, batches = model.decode, []
+
+    def checked_decode(batch):
+        out = decode(batch)
+        if not torch.equal(out["seq"][:, 0], plain_step0(model, batch)):
+            raise AssertionError(f"eval driver batch {len(batches)}: K1's "
+                                 "step-0 tokens differ from the plain "
+                                 "decode's")
+        batches.append(out["seq"].shape[0])
+        return out
+
+    model.decode = checked_decode
+    results = work / "c" / "results.json"
+    gd.greedy_decode.launches = 0
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        scores, preds = eval_driver.run_test(
+            tr, str(snaps), TRAIN_STEPS, str(results), max_batches=EVAL_B)
+    launches = gd.greedy_decode.launches
+    model.decode = decode
+    took = next(line for line in printed.getvalue().splitlines()
+                if line.startswith("Test took"))
+    if tr.state.step != TRAIN_STEPS or batches != [bs] * EVAL_B:
+        raise AssertionError(f"eval driver: step {tr.state.step}, batches "
+                             f"{batches}")
+    if launches != len(batches):
+        raise AssertionError(f"eval driver: K1 launched {launches} times "
+                             f"for {len(batches)} batches")
+    k1 += launches
+    # timed again without the checks, the image cache warm
+    gd.greedy_decode.launches = 0
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        _, again = eval_driver.run_test(tr, max_batches=EVAL_B)
+    if again != preds or gd.greedy_decode.launches != EVAL_B:
+        raise AssertionError("eval driver: a second run differs")
+    k1 += EVAL_B
+    took_warm = next(line for line in printed.getvalue().splitlines()
+                     if line.startswith("Test took"))
+    gt = work / "c" / "gt.json"
+    gt.write_text(json.dumps(tr._gt_annotations(preds)))
+    with contextlib.redirect_stdout(io.StringIO()):
+        acc = score.main(["-d", str(results), "-g", str(gt), "-a"])
+        caption = score.main(["-d", str(results), "-g", str(gt)])
+    if list(acc) != [scores["acc_total"], scores["acc_open"],
+                     scores["acc_closed"]] or any(
+            abs(caption[k] - scores[k]) > 1e-9 for k in caption):
+        raise AssertionError(f"score.main {acc} {caption} against the eval "
+                             f"driver's {scores}")
+    gd.greedy_decode.launches = 0
+    cli = io.StringIO()
+    with contextlib.redirect_stdout(cli):
+        # the synthetic test split's 52 pairs in 2 batches of 32
+        eval_driver.main(["--synthetic", "--max_batches", "2",
+                          "--batch_size", "32", "--workdir",
+                          str(work / "d"), "--device", device])
+    cli_took = next(line for line in cli.getvalue().splitlines()
+                    if line.startswith("Test took"))
+    if gd.greedy_decode.launches != 2:
+        raise AssertionError(f"eval driver CLI: K1 launched "
+                             f"{gd.greedy_decode.launches} times for 2 "
+                             "batches")
+    k1 += 2
+    r["eval"] = {"line": took, "pairs": len(preds),
+                 "pairs_per_s_checked": float(took.split("(")[1].split()[2]),
+                 "line_warm": took_warm,
+                 "pairs_per_s": float(took_warm.split("(")[1].split()[2]),
+                 "scores": scores, "cli_line": cli_took}
+    log(f"[11a] eval driver on the step-{TRAIN_STEPS} snapshot, {EVAL_B} "
+        f"batches of {bs} (learnable eval split), each batch checked: "
+        f"{took}; again, unchecked: {took_warm}; Bleu_1 "
+        f"{scores['Bleu_1']:.4f}, acc_total {scores['acc_total']:.4f}; "
+        f"K1 launches {launches} = batches, each batch's step-0 tokens "
+        f"equal the plain decode's; score.main -a and the caption metrics "
+        f"equal the driver's; CLI --synthetic --max_batches 2 --batch_size "
+        f"32: {cli_took}")
+
+    # ---- 11b. beam search -----------------------------------------------
+    gd.greedy_decode.launches = 0
+    tr.evaluate(beam_size=BEAM, max_batches=1)          # warm
+    sync()
+    t0 = time.perf_counter()
+    b_scores, b_preds = tr.evaluate(beam_size=BEAM, max_batches=1)
+    sync()
+    beam_ms = (time.perf_counter() - t0) * 1e3
+    if gd.greedy_decode.launches:
+        raise AssertionError("beam search launched K1")
+    sd = torch.load(snaps / f"{TRAIN_STEPS}.pt", map_location="cpu",
+                    weights_only=True)["params"]
+    pair_idx = tr.eval_ds.split_idxs[:BEAM_PAIRS]
+    host = {k: v for k, v in tr.eval_ds.sample_batch(pair_idx).items()
+            if k != "pair_index"}
+    outs = {}
+    for dev in (device, "cpu"):
+        m = EkaidModel(tr.cfg, len(tr.vocab.word_to_idx), policy=F32,
+                       device=dev, seed=None)
+        m.load_state_dict(sd)
+        outs[dev] = beam_cut_margins(m, host, BEAM)
+    (card, _), (cpu, margins) = outs[device], outs["cpu"]
+    tol = rec["near_tie_tol"]
+    differ = [int(i) for i in (card["group_seqs"].cpu() != cpu["group_seqs"])
+              .flatten(1).any(1).nonzero()[:, 0]]
+    near = [int(i) for i in (margins < tol).any(0).nonzero()[:, 0]]
+    if not set(differ) <= set(near):
+        raise AssertionError(f"beam f32 card vs CPU: rows {differ} differ, "
+                             f"rows with a near-tied cut {near}")
+    lp_gap = (card["logprob"].cpu() - cpu["logprob"]).abs().max().item()
+    r["beam"] = {"ms_per_batch": beam_ms, "batch": bs, "beam_size": BEAM,
+                 "Bleu_1": b_scores["Bleu_1"],
+                 "f32_rows_differ": differ, "f32_near_tie_rows": near,
+                 "f32_min_cut_margin": float(margins.min()),
+                 "f32_logprob_gap": lp_gap}
+    log(f"[11b] beam search, beam {BEAM}, one batch of {bs} on the card: "
+        f"{beam_ms:.1f} ms (no kernel; K1 launches 0), Bleu_1 "
+        f"{b_scores['Bleu_1']:.4f}; f32 {BEAM_PAIRS} pairs card vs CPU: "
+        f"rows differ {differ} (near-tied cuts in rows {near}), smallest "
+        f"cut margin {float(margins.min()):.3g}, logprob gap {lp_gap:.3g}")
+
+    # ---- 11c. the server --------------------------------------------------
+    gd.greedy_decode.launches = 0
+    engine = CoalescingEngine(tr, coalesce_batch=16)
+    warm = gd.greedy_decode.launches
+    served = []
+    real_execute = engine._execute
+
+    def recorded_execute(items, work_, dev):
+        """The pool thread's whole job for a batch: assembly, decode,
+        fetch, futures resolved; host clock."""
+        t = time.perf_counter()
+        real_execute(items, work_, dev)
+        served.append(([(i, None if q is None else tuple(q))
+                        for i, q, _, _ in items], work_, dev,
+                       (time.perf_counter() - t) * 1e3))
+
+    engine._execute = recorded_execute
+    srv = Server(("127.0.0.1", 0), make_handler(engine))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    idxs = [int(i) for i in tr.eval_ds.split_idxs]
+    words = tr.vocab.idx_to_word
+    reqs = []
+    for n in range(SERVE_REQUESTS):
+        idx = idxs[n % len(idxs)]
+        q = tr.vocab.decode(tr.eval_ds.questions[idx]).split()
+        q = " ".join(q[:1 + n % 4] + [words[5 + n % 97]])
+        reqs.append({"question": q, "index": idx, "detail": n % 5 == 0})
+
+    def ask(req):
+        t = time.perf_counter()
+        status, body = http(base, "/question", req)
+        return status, body, (time.perf_counter() - t) * 1e3
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=SERVE_CLIENTS) as ex:
+        replies = list(ex.map(ask, reqs))
+    wall = time.perf_counter() - t0
+    launches = gd.greedy_decode.launches - warm
+    stats = dict(engine.stats)
+    status = {p: http(base, p)[0] for p in ("/health", "/sample", "/")}
+    status["/refresh"] = http(base, "/refresh", {})[0]
+    if any(s != 200 for s, _, _ in replies) or any(
+            v != 200 for v in status.values()):
+        raise AssertionError(f"server: statuses {status}")
+    if stats["requests"] != SERVE_REQUESTS or launches != stats["batches"]:
+        raise AssertionError(f"server: stats {stats}, K1 launches "
+                             f"{launches} after the warm-up's {warm}")
+    # each reply against its own row of its batch, decoded again
+    want = {}
+    for items, (rows, questions), dev, _ in served:
+        batch = {k: torch.cat([x[k] for x in rows]) for k in rows[0]}
+        batch["question"] = torch.as_tensor(questions, device=dev)
+        again = model.decode(batch)["seq"]
+        if not torch.equal(again[:, 0], plain_step0(model, batch)):
+            raise AssertionError("a served batch's step-0 tokens differ "
+                                 "from the plain decode's")
+        for k, key in enumerate(items):
+            want[key] = tr.vocab.decode(again[k].cpu().numpy())
+    b1_equal = 0
+    for req, (_, body, _) in zip(reqs, replies):
+        key = (req["index"], tuple(engine.question_to_ids(req["question"])))
+        if body["answer"] != want[key] or body["index"] != req["index"]:
+            raise AssertionError(f"request {req}: answer {body['answer']!r}"
+                                 f", its batch row decodes {want[key]!r}")
+        if req["detail"] and len(body["tokens"]) != len(
+                body["module_weights"]):
+            raise AssertionError(f"request {req}: detail {body}")
+        b1 = InferenceEngine.answer(engine, req["question"], req["index"])
+        b1_equal += b1["answer"] == body["answer"]
+    srv.shutdown()
+    srv.server_close()
+    if not engine.drain(timeout_s=30):
+        raise AssertionError("server: drain timed out")
+    lat = sorted(x for _, _, x in replies)
+    k1 += warm + launches
+    # the plain batch-1 engine, one request at a time
+    gd.greedy_decode.launches = 0
+    plain = InferenceEngine(tr)
+    srv = Server(("127.0.0.1", 0), make_handler(plain))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    plain_lat = [ask(req)[2] for req in reqs[:PLAIN_REQUESTS]]
+    srv.shutdown()
+    srv.server_close()
+    if gd.greedy_decode.launches != PLAIN_REQUESTS + 1:
+        raise AssertionError(f"plain engine: K1 launched "
+                             f"{gd.greedy_decode.launches} times for "
+                             f"{PLAIN_REQUESTS} requests and the warm-up")
+    k1 += gd.greedy_decode.launches
+    r["server"] = {
+        "requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS,
+        "requests_per_s": SERVE_REQUESTS / wall,
+        "latency_ms_p50": lat[len(lat) // 2],
+        "latency_ms_p99": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        "batches": stats["batches"], "coalesced": stats["coalesced"],
+        "max_batch": stats["max_batch"], "warmup_launches": warm,
+        "batch_ms_p50": statistics.median(x[3] for x in served),
+        "batch_ms_sum_over_wall": sum(x[3] for x in served) / (wall * 1e3),
+        "batch_sizes": sorted(len(x[0]) for x in served),
+        "coalesced_equal_batch1_share": b1_equal / SERVE_REQUESTS,
+        "plain_b1_latency_ms_p50": statistics.median(plain_lat)}
+    s_ = r["server"]
+    log(f"[11c] server, CoalescingEngine(16) over HTTP, {SERVE_CLIENTS} "
+        f"clients, {SERVE_REQUESTS} requests: {s_['requests_per_s']:.1f} "
+        f"requests/s, latency p50 {s_['latency_ms_p50']:.1f} ms, p99 "
+        f"{s_['latency_ms_p99']:.1f} ms; {s_['batches']} batches "
+        f"({s_['coalesced']} coalesced, largest {s_['max_batch']}; sizes "
+        f"{s_['batch_sizes']}; a batch's execution {s_['batch_ms_p50']:.1f} "
+        f"ms p50, executions summed {s_['batch_ms_sum_over_wall']:.3f} of "
+        f"the wall), K1 "
+        f"launches {launches} = batches (+{warm} warm-up); every reply is "
+        f"its own batch row's decode, each batch's step-0 tokens equal the "
+        f"plain decode's; coalesced answers equal to batch-1 answers "
+        f"{s_['coalesced_equal_batch1_share']:.4f} (recorded); "
+        f"/health /sample / /refresh 200; drained. Plain batch-1 engine, "
+        f"{PLAIN_REQUESTS} requests one at a time: p50 "
+        f"{s_['plain_b1_latency_ms_p50']:.1f} ms")
+
+    # ---- 11d. the extraction runner on imported detector weights --------
+    det = cfg.detector
+    gen = torch.Generator().manual_seed(SEED)
+    paths = []
+    for name, k in (("ana", det.num_anatomy_classes),
+                    ("dis", det.num_disease_classes)):
+        m = FasterRCNN(det, num_classes=k, norm=det.norm,
+                       stride_in_1x1=det.stride_in_1x1)
+        init_params(m, gen)
+        paths.append(work / f"{name}.pt")
+        torch.save(m.state_dict(), paths[-1])
+    real_writer, RecordSink.made = runner.H5Writer, []
+    runner.H5Writer = RecordSink
+    rk.multilevel_roi_align_canvas.launches = 0
+    try:
+        runner.main(["--ana_ckpt", str(paths[0]), "--dis_ckpt",
+                     str(paths[1]), "--synthetic", str(DET_IMAGES),
+                     "--out", str(work / "graph.h5"), "--device", device])
+    finally:
+        runner.H5Writer = real_writer
+    sync()
+    k2 = rk.multilevel_roi_align_canvas.launches
+    got = RecordSink.made[0]
+    ana_apply, dis_apply = runner.build_detector_fns(
+        cfg, gen=torch.Generator().manual_seed(SEED), device=device)
+    sink = MemorySink()
+    Extractor(ana_apply, dis_apply, det.num_disease_classes).run(
+        runner.synthetic_batches(DET_IMAGES, det.image_size,
+                                 det.extract_batch_size), sink)
+    if k2 != 2 * DET_IMAGES // det.extract_batch_size or \
+            len(got.records) != DET_IMAGES:
+        raise AssertionError(f"runner: K2 launches {k2}, records "
+                             f"{len(got.records)}")
+    if got.run_meta["ana_ckpt"] != str(paths[0]) or \
+            got.run_meta["dis_ckpt"] != str(paths[1]):
+        raise AssertionError(f"runner: run_meta {got.run_meta}")
+    for i, (a, b) in enumerate(zip(got.records, sink.records)):
+        for key in b:
+            if not np.array_equal(a[key], b[key]):
+                raise AssertionError(f"runner record {i}: {key} differs "
+                                     "from the in-process path")
+    r["runner"] = {"images": DET_IMAGES, "k2_launches": k2}
+    log(f"[11d] extraction runner --ana_ckpt/--dis_ckpt (.pt state dicts "
+        f"of the seeded detectors), --synthetic {DET_IMAGES}: records "
+        f"bit-equal to the in-process path on the same weights and "
+        f"images; K2 launches {k2}; run_meta names both checkpoints")
+    return k1, k2
 
 
 def main() -> dict:
@@ -1751,6 +2252,7 @@ def main() -> dict:
     from ekaid_torch.models.greedy_decode import (greedy_decode,
                                                   greedy_decode_plain)
     from ekaid_torch.serving.engine import InferenceEngine
+    from ekaid_torch.train.train import build_synthetic_trainer
     from ekaid_torch.utils.dtypes import BF16
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1776,14 +2278,20 @@ def main() -> dict:
     cfg = load_config()
     sp = cfg.speaker
     B = BATCHES[0]
-    m16, batch, fused16, feats16, w16, out16 = k1_phase(rec, cfg)
+    _, batch, fused16, feats16, w16, out16 = k1_phase(rec, cfg)
 
     # ---- 4. main path ----------------------------------------------------
+    # the synthetic trainer's model is phase 3's bf16 model: the same
+    # config, vocab and seed
+    tr4 = build_synthetic_trainer(
+        cfg.replace(train=cfg.train.replace(seed=SEED)),
+        str(ROOT / "build" / "engine_phase"), device="cuda")
     greedy_decode.launches = 0
-    engine = InferenceEngine(cfg, model=m16, device="cuda")
+    engine = InferenceEngine(tr4)
+    m16 = engine.model
     decodes = 1                              # the engine's warm-up answer
-    idxs = engine.store.split_idxs
-    texts = [engine.vocab.decode(engine.store.questions[int(i)])
+    idxs = engine.ds.split_idxs
+    texts = [engine.vocab.decode(engine.ds.questions[int(i)])
              for i in idxs[:4]]
     answers = []
     for i, text in enumerate(texts):
@@ -1810,8 +2318,9 @@ def main() -> dict:
     if not ((out_main["seq"] >= 0) & (out_main["seq"] < sp.vocab_size)).all():
         raise AssertionError("main path: token out of the vocab")
     if not torch.equal(out_main["seq"], out16["seq"]):
-        raise AssertionError("main path batch-64 decode differs from the "
-                             "same decode in phase 3")
+        raise AssertionError("main path batch-64 decode (the trainer's "
+                             "model) differs from the same decode in "
+                             "phase 3")
     rec["launches"] = launches
     # each answer against the plain version on the engine's own inputs
     w16e = m16.speaker.decode_weights()
@@ -1926,6 +2435,14 @@ def main() -> dict:
 
     # ---- 10. the training path, whose in-training evals run K1 -----------
     kernels_line[0]["launches"] += train_phase(rec, cfg)
+
+    # ---- 11. the inference entry points on phase 10's snapshots ----------
+    k1, k2 = inference_phase(rec, cfg)
+    kernels_line[0]["launches"] += k1
+    next(k for k in kernels_line
+         if k["name"] == "roi_align_canvas")["launches"] += k2
+    import shutil
+    shutil.rmtree(ROOT / "build" / "train_phase", ignore_errors=True)
     kline = {"kernels": kernels_line}
     log("record: " + json.dumps(rec))
     print(json.dumps(kline))

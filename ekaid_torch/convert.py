@@ -18,19 +18,21 @@ import numpy as np
 import torch
 
 
-def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    """Nested dicts of arrays -> {'a.b.c': array}."""
+def flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
+    """Nested dicts of arrays -> {'a.b.c': array}. Torch tensors stay
+    tensors (a bf16 leaf has no numpy dtype); other leaves become numpy
+    arrays."""
     out = {}
     for k, v in tree.items():
         key = f"{prefix}{k}"
         if isinstance(v, Mapping):
             out.update(flatten(v, key + "."))
         else:
-            out[key] = np.asarray(v)
+            out[key] = v if isinstance(v, torch.Tensor) else np.asarray(v)
     return out
 
 
-def _leaves(tree: Mapping, names) -> Dict[str, np.ndarray]:
+def _leaves(tree: Mapping, names) -> Dict[str, object]:
     """A param-shaped tree flattened to `names`; raises on any leaf the
     names lack or any name the tree lacks."""
     if set(tree) == {"params"}:
@@ -44,27 +46,45 @@ def _leaves(tree: Mapping, names) -> Dict[str, np.ndarray]:
     return leaves
 
 
-def _copy(dst: torch.Tensor, value: np.ndarray, name: str) -> None:
-    if value.ndim == 4:                               # HWIO -> OIHW
-        value = value.transpose(3, 2, 0, 1)
+def as_torch(value) -> torch.Tensor:
+    """A leaf (numpy array or tensor) as a tensor in the torch layout:
+    4-D leaves go from HWIO to OIHW."""
+    t = value if isinstance(value, torch.Tensor) \
+        else torch.as_tensor(np.array(value))
+    return t.permute(3, 2, 0, 1) if t.dim() == 4 else t
+
+
+def _copy(dst: torch.Tensor, value, name: str) -> None:
+    value = as_torch(value)
     if tuple(value.shape) != tuple(dst.shape):
-        raise ValueError(f"{name}: tree shape {value.shape}, model "
+        raise ValueError(f"{name}: tree shape {tuple(value.shape)}, model "
                          f"shape {tuple(dst.shape)}")
-    dst.copy_(torch.as_tensor(np.array(value), dtype=dst.dtype))
+    dst.copy_(value.to(dst.dtype))
 
 
-def load_optax_adam_state(opt, mu: Mapping, nu: Mapping, count: int):
-    """Set the port's adam optimizer `opt` to an optax adam state: mu and
-    nu are the moment trees (nested dicts of numpy, shaped like the flax
-    params), count the updates applied, which is also the position of
-    the learning-rate schedule. Returns opt."""
-    if "mu" not in opt.slots:
-        raise ValueError(f"optimizer kind {opt.cfg.type!r} has no adam "
-                         "moments")
+#: optax's name of each optimizer slot -> the port's (`train/step.py`)
+OPTAX_SLOTS = {"mu": "mu", "nu": "nu", "trace": "trace",
+               "sum_of_squares": "acc"}
+
+
+def load_optax_state(opt, slots: Mapping, count: int):
+    """Set the port's optimizer `opt` to an optax state: `slots` maps
+    optax's slot names (mu and nu of adam/adamw, trace of sgd with
+    momentum, nu of rmsprop, sum_of_squares of adagrad; none for sgd) to
+    trees shaped like the flax params, and `count` is the updates
+    applied, which is also the position of the learning-rate schedule.
+    The slots must be exactly the ones `opt`'s kind keeps. Returns
+    opt."""
+    want = sorted(opt.slots)
+    got = sorted(OPTAX_SLOTS.get(k, k) for k in slots)
+    if got != want:
+        raise ValueError(f"optimizer kind {opt.cfg.type!r} keeps slots "
+                         f"{want}; the state holds {got}")
     with torch.no_grad():
-        for key, tree in (("mu", mu), ("nu", nu)):
+        for key, tree in slots.items():
+            port_key = OPTAX_SLOTS[key]
             leaves = _leaves(tree, opt.names)
-            for name, t in zip(opt.names, opt.slots[key]):
+            for name, t in zip(opt.names, opt.slots[port_key]):
                 _copy(t, leaves[name], f"{key}.{name}")
     opt.count = int(count)
     return opt
@@ -72,24 +92,12 @@ def load_optax_adam_state(opt, mu: Mapping, nu: Mapping, count: int):
 
 def load_flax_params(model: torch.nn.Module, tree: Mapping
                      ) -> torch.nn.Module:
-    """Copy a flax param tree (nested dicts of numpy arrays, with or
-    without the outer 'params' collection) into `model`, in place."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
-    leaves = flatten(tree)
+    """Copy a flax param tree (nested dicts of numpy arrays or tensors,
+    with or without the outer 'params' collection) into `model`, in
+    place."""
     params = dict(model.named_parameters())
-    extra = sorted(set(leaves) - set(params))
-    missing = sorted(set(params) - set(leaves))
-    if extra or missing:
-        raise KeyError(f"param tree does not match the model: unknown "
-                       f"leaves {extra}, missing leaves {missing}")
+    leaves = _leaves(tree, params)
     with torch.no_grad():
         for name, p in params.items():
-            value = leaves[name]
-            if value.ndim == 4:                       # HWIO -> OIHW
-                value = value.transpose(3, 2, 0, 1)
-            if tuple(value.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: tree shape {value.shape}, model "
-                                 f"shape {tuple(p.shape)}")
-            p.copy_(torch.as_tensor(np.array(value), dtype=p.dtype))
+            _copy(p, leaves[name], name)
     return model

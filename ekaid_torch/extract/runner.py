@@ -12,8 +12,11 @@ pipeline validation and measurement.
 
 The default device is CUDA, and without a card the runner raises; the
 CPU runs only when asked for. Writing the HDF5 file needs h5py and
-reading PNG/JPG files needs PIL. Data-parallel extraction (--dp) and
-orbax checkpoints (--ana_ckpt/--dis_ckpt) are not ported yet.
+reading PNG/JPG files needs PIL. Trained detector weights come from
+`--ana_ckpt`/`--dis_ckpt`: a detector `.pt` that
+`python -m ekaid_torch.utils.orbax_import detector` wrote, or the
+reference's orbax checkpoint directory where tensorstore is installed.
+Data-parallel extraction (--dp) is not ported yet.
 """
 
 from __future__ import annotations
@@ -33,15 +36,17 @@ from ekaid_torch.models.layers import init_params
 from ekaid_torch.utils.device import resolve_device
 from ekaid_torch.utils.dtypes import (Policy, canonical,
                                       cast_params_for_inference)
+from ekaid_torch.utils.orbax_import import is_orbax_dir, load_detector
 
 
 def build_detectors(cfg: Config, ana_params=None, dis_params=None,
                     gen: Optional[torch.Generator] = None, device="cuda"):
     """The anatomy and disease FasterRCNNs on `device`, in eval mode.
     Weights are the given flax param trees (nested dicts of numpy
-    arrays) or random, drawn from `gen` (seed 0 when None), anatomy
-    first. They are cast to the compute dtype once: extraction is
-    inference only."""
+    arrays), `FasterRCNN` state dicts (flat dicts of tensors, as
+    `utils/orbax_import.py` writes them) or random, drawn from `gen`
+    (seed 0 when None), anatomy first. They are cast to the compute
+    dtype once: extraction is inference only."""
     dev = resolve_device(device)
     det = cfg.detector
     policy = Policy(compute_dtype=canonical(cfg.dtypes.compute_dtype))
@@ -53,6 +58,8 @@ def build_detectors(cfg: Config, ana_params=None, dis_params=None,
                        stride_in_1x1=det.stride_in_1x1, policy=policy)
         if params is None:
             init_params(m, gen)
+        elif all(isinstance(v, torch.Tensor) for v in params.values()):
+            m.load_state_dict(params)
         else:
             load_flax_params(m, params)
         models.append(cast_params_for_inference(m, policy).to(dev).eval())
@@ -188,6 +195,15 @@ def main(argv=None):
     p.add_argument("--allow_random", action="store_true")
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--image_size", type=int, default=None)
+    p.add_argument("--norm", default=None, choices=["gn", "frozen_bn"],
+                   help="backbone norm; frozen_bn (with --stride_in_1x1) "
+                        "for converted Detectron2 checkpoints")
+    p.add_argument("--stride_in_1x1", action="store_true")
+    p.add_argument("--preprocess", default=None,
+                   choices=["unit", "detectron2"],
+                   help="input normalization on the device; detectron2 is "
+                        "the caffe-BGR mean subtraction of converted "
+                        "checkpoints")
     p.add_argument("--store_dtype", default="float32",
                    choices=["float32", "float16"])
     p.add_argument("--io_workers", type=int, default=None,
@@ -207,13 +223,13 @@ def main(argv=None):
         raise SystemExit("--dp: data-parallel extraction is not ported to "
                          "ekaid_torch yet; run one process per card with "
                          "--shard K/N")
-    if a.ana_ckpt or a.dis_ckpt:
-        raise SystemExit("--ana_ckpt/--dis_ckpt: orbax checkpoints are not "
-                         "read by ekaid_torch yet (they come with the "
-                         "trainer); use --allow_random")
-    if not a.allow_random:
+    if not (a.ana_ckpt or a.dis_ckpt or a.allow_random):
         raise SystemExit("no checkpoints given; pass --allow_random to run "
                          "with random detector weights")
+    for flag, path in (("--ana_ckpt", a.ana_ckpt), ("--dis_ckpt", a.dis_ckpt)):
+        if path and not (os.path.isfile(path) or is_orbax_dir(path)):
+            raise SystemExit(f"{flag} {path}: neither a detector .pt file "
+                             "nor an orbax checkpoint directory")
     shard = None
     if a.shard:
         try:
@@ -234,15 +250,25 @@ def main(argv=None):
         det = det.replace(image_size=a.image_size)
     if a.batch_size:
         det = det.replace(extract_batch_size=a.batch_size)
+    if a.norm:
+        det = det.replace(norm=a.norm)
+    if a.stride_in_1x1:
+        det = det.replace(stride_in_1x1=True)
+    if a.preprocess:
+        det = det.replace(preprocess=a.preprocess)
     cfg = cfg.replace(detector=det)
 
-    ana_apply, dis_apply = build_detector_fns(cfg, device=a.device)
+    ana_params = load_detector(a.ana_ckpt) if a.ana_ckpt else None
+    dis_params = load_detector(a.dis_ckpt) if a.dis_ckpt else None
+    ana_apply, dis_apply = build_detector_fns(cfg, ana_params, dis_params,
+                                              device=a.device)
     ex = Extractor(ana_apply, dis_apply, det.num_disease_classes)
     run_meta = {"shard": a.shard or "",
                 "image_dir": os.path.abspath(a.image_dir)
                 if a.image_dir else "",
-                "synthetic": int(a.synthetic), "ana_ckpt": "",
-                "dis_ckpt": "", "norm": det.norm,
+                "synthetic": int(a.synthetic),
+                "ana_ckpt": a.ana_ckpt or "", "dis_ckpt": a.dis_ckpt or "",
+                "norm": det.norm,
                 "preprocess": det.preprocess, "image_size": det.image_size}
     writer = H5Writer(a.out, num_nodes=2 * det.num_anatomy_classes,
                       feat_dim=det.roi_feat_dim, feat_dtype=a.store_dtype,

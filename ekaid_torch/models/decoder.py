@@ -16,11 +16,15 @@ Two modes:
     bans repeating the previous token, and stops when every row has
     emitted 0. The loop runs in `models/greedy_decode.py`: the CUDA
     kernel on the card, its plain version on the CPU.
-Multinomial sampling and beam search are not ported yet.
+  * `sample_beam`, diverse-group beam search: plain torch on either
+    device (the reference runs it as XLA, with no kernel of its own),
+    one `DynamicCore` step a group and time step.
+Multinomial sampling is not ported yet.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -266,6 +270,121 @@ class DynamicSpeaker(nn.Module):
         fused, feats = self._fused(feat_bef, feat_diff, feat_aft)
         return greedy_decode(self.decode_weights(), self.cfg, self.policy,
                              fused, feats)
+
+    @torch.no_grad()
+    def sample_beam(self, feat_bef, feat_aft, feat_diff,
+                    beam_size: Optional[int] = None,
+                    group_size: Optional[int] = None,
+                    diversity_lambda: Optional[float] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """Diverse-group beam search with the reference's semantics:
+
+          * each beam is primed with `bos_token`; index 1 is banned
+            (1000 off its logprob); the decoding constraint bans the
+            beam's previous token;
+          * at a group's first local step only beam 0 expands (all its
+            beams are the same);
+          * candidates rank on the diversity-augmented running sum; a
+            beam that emits 0 competes for its group's best and its sum
+            is then killed at -1000;
+          * the G groups of beam_size / G beams run on a staggered
+            schedule: group g is at local step t - g at step t, and the
+            groups advance in order within a step, so group g's
+            diversity penalty reads the earlier groups' current token
+            rows (history that their later forks rewrote included). Each
+            occurrence of a token among an earlier group's beams at the
+            same local step takes `diversity_lambda` off its logprob
+            once more;
+          * a group's answer is its best finished beam, or its best live
+            beam where that sum is higher.
+
+        Returns seq [B, T] int32 and logprob [B] (group 0's best), and
+        group_seqs [B, G, T] and group_logprobs [B, G] over the groups.
+        Ties between candidates go to the lower flat index (beam, then
+        token), as in XLA's top_k."""
+        c, p = self.cfg, self.policy
+        beams = beam_size or c.beam_size
+        G = group_size if group_size is not None else c.group_size
+        lam = (diversity_lambda if diversity_lambda is not None
+               else c.diversity_lambda)
+        if beams % G:
+            raise ValueError(f"beam_size {beams} not divisible by "
+                             f"group_size {G}")
+        W = beams // G
+        B, T, V = feat_bef.shape[0], c.seq_length, c.vocab_size
+        dev, sdt = feat_bef.device, p.softmax_dtype
+        fused, feats = self._fused(*(x.repeat_interleave(W, dim=0) for x in
+                                     (feat_bef, feat_diff, feat_aft)))
+        vocab = torch.arange(V, device=dev)
+        ban_one = torch.where(vocab == 1, 1000.0, 0.0)
+        neg = torch.tensor(-1e9, dtype=sdt, device=dev)
+        rows = torch.arange(B, device=dev)[:, None]
+
+        def group_step(gs, lt, prev_rows):
+            state, it, seqs, sums, best_seq, best_p = gs
+            h_lang, state, dpos, _ = self.core(self._embed_word(it), fused,
+                                               feats, state)
+            logp = (self._out_logprobs(h_lang, dpos)[0] - ban_one
+                    ).view(B, W, V)
+            if c.decoding_constraint and lt > 0:
+                logp = logp.masked_fill(
+                    vocab == it.view(B, W, 1).long(), -math.inf)
+            if prev_rows is not None:
+                toks = prev_rows.permute(1, 0, 2).reshape(B, -1).long()
+                counts = torch.zeros(B, V, device=dev).scatter_add_(
+                    1, toks, torch.ones(toks.shape, device=dev))
+                logp = logp - (lam * counts)[:, None, :].to(logp.dtype)
+            cand = sums[:, :, None] + logp
+            if lt == 0:
+                cand[:, 1:] = neg
+            top_p, top_i = torch.sort(cand.view(B, W * V), dim=1,
+                                      descending=True, stable=True)
+            top_p, top_i = top_p[:, :W], top_i[:, :W]
+            src, tok = top_i // V, (top_i % V).to(torch.int32)
+            flat_src = (rows * W + src).view(-1)
+            state = tuple(x[flat_src] for x in state)
+            seqs = seqs[rows, src]
+            seqs[:, :, lt] = tok
+            finished = tok == 0
+            cand_best = torch.where(finished, top_p, neg)
+            arg = cand_best.argmax(1)
+            grp_best = cand_best.gather(1, arg[:, None])[:, 0]
+            improve = grp_best > best_p
+            best_seq = torch.where(improve[:, None], seqs[rows[:, 0], arg],
+                                   best_seq)
+            best_p = torch.where(improve, grp_best, best_p)
+            sums = torch.where(finished, torch.tensor(-1000.0, dtype=sdt,
+                                                      device=dev), top_p)
+            return state, tok.view(-1), seqs, sums, best_seq, best_p
+
+        z = torch.zeros(B * W, c.rnn_size, dtype=p.compute_dtype, device=dev)
+        gstates = [((z, z, z, z),
+                    torch.full((B * W,), c.bos_token, dtype=torch.int32,
+                               device=dev),
+                    torch.zeros(B, W, T, dtype=torch.int32, device=dev),
+                    torch.zeros(B, W, dtype=sdt, device=dev),
+                    torch.zeros(B, T, dtype=torch.int32, device=dev),
+                    torch.full((B,), -math.inf, dtype=sdt, device=dev))
+                   for _ in range(G)]
+        for t in range(T + G - 1):
+            for g in range(G):
+                lt = t - g
+                if not 0 <= lt < T:
+                    continue
+                prev = (torch.stack([gstates[q][2][:, :, lt]
+                                     for q in range(g)]) if g else None)
+                gstates[g] = group_step(gstates[g], lt, prev)
+        g_seqs, g_ps = [], []
+        for _, _, seqs, sums, best_seq, best_p in gstates:
+            arg = sums.argmax(1)
+            alive = sums.gather(1, arg[:, None])[:, 0]
+            use = alive > best_p
+            g_seqs.append(torch.where(use[:, None], seqs[rows[:, 0], arg],
+                                      best_seq))
+            g_ps.append(torch.where(use, alive, best_p))
+        return {"seq": g_seqs[0], "logprob": g_ps[0],
+                "group_seqs": torch.stack(g_seqs, dim=1),
+                "group_logprobs": torch.stack(g_ps, dim=1)}
 
 
 #: the matrix products whose outputs remat 'dots' keeps

@@ -13,8 +13,8 @@ A batch is a dict of padded arrays (numpy or torch):
 
 `forward` is the training path: the encoder with gradients, then
 teacher forcing; the losses below turn its outputs into the training
-objective. `encode` and the greedy `decode` run without gradients.
-Beam search is not ported yet.
+objective. `encode`, the greedy `decode` and the beam-search
+`decode_beam` run without gradients.
 """
 
 from __future__ import annotations
@@ -110,6 +110,21 @@ class EkaidModel(nn.Module):
         enc = self.encode(batch)
         dec = self.speaker.sample(enc["feat_bef"], enc["feat_aft"],
                                   enc["feat_diff"])
+        return {**enc, **dec}
+
+    @torch.no_grad()
+    def decode_beam(self, batch, beam_size: int = 3,
+                    group_size: Optional[int] = None,
+                    diversity_lambda: Optional[float] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """Beam-search eval path: the encoder's outputs plus
+        `DynamicSpeaker.sample_beam`'s (group_size > 1: diverse
+        groups)."""
+        enc = self.encode(batch)
+        dec = self.speaker.sample_beam(
+            enc["feat_bef"], enc["feat_aft"], enc["feat_diff"],
+            beam_size=beam_size, group_size=group_size,
+            diversity_lambda=diversity_lambda)
         return {**enc, **dec}
 
 

@@ -1,23 +1,31 @@
 """Batch-1 inference engine (counterpart of the reference package's
 `serving/server.py::InferenceEngine`).
 
+`InferenceEngine(trainer)` answers questions about the pairs of the
+trainer's eval split with the trainer's model, whose parameters it casts
+to the compute dtype once (weight-norm modules excepted).
 `answer(question_text, index, detail)` tokenizes a free-form question
-through the answer vocabulary (unknown words drop out), decodes it
-greedily against the study pair `index` and returns the answer text.
-Each pair's inputs are uploaded to the device once, at the compact wire
-dtypes (features f16, adjacency labels int8), and kept in an LRU; only
-the question row is uploaded per request. The model's parameters are
-cast to the compute dtype once, weight-norm modules excepted.
+through the answer vocabulary (unknown words drop out), pads it to the
+dataset's question width, decodes it greedily against study pair
+`index` (K1 on the card) and returns the answer text, with the tokens
+and the module weights trimmed at EOS when `detail` is asked. Each
+pair's inputs are uploaded to the device once, at the compact wire
+dtypes (`data/pipeline.py::compact_wire`), and kept in an LRU under a
+lock; only the question row is uploaded per request. Decodes run one at
+a time per device (a lock around the launch): K1 is one cooperative
+kernel that fills the card.
 
     python -m ekaid_torch.serving.engine --n 8     # one JSON line each
 
-The HTTP handler and the coalescing engine are not ported yet.
+The HTTP server and the coalescing engine are `serving/server.py`.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import random
 import threading
 import time
 from collections import OrderedDict
@@ -26,97 +34,101 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ekaid_torch.config import load_config
-from ekaid_torch.data.synthetic import SyntheticPairStore
-from ekaid_torch.data.vocab import identity_vocab, treebank_tokenize
-from ekaid_torch.models.ekaid import EkaidModel
-from ekaid_torch.utils.device import resolve_device
-from ekaid_torch.utils.dtypes import Policy, cast_params_for_inference
+from ekaid_torch.config import default_config, load_config
+from ekaid_torch.data.pipeline import compact_wire
+from ekaid_torch.data.vocab import treebank_tokenize
+from ekaid_torch.utils.dtypes import cast_params_for_inference
 
 #: pairs kept on the device (~0.6 MB each at flagship widths)
 _CACHE_SIZE = 64
-#: compact wire dtypes of the per-pair device upload
-_WIRE = {"d_feats": np.float16, "q_feats": np.float16,
-         "d_adj": np.int8, "q_adj": np.int8,
-         "d_sem_adj": np.int8, "q_sem_adj": np.int8}
+#: sample fields the decode does not read
+_NOT_INPUTS = ("pair_index", "labels", "masks")
 
 
 class InferenceEngine:
-    """Answers questions about the pairs of `store` with `model`.
+    """Answers questions about `trainer.eval_ds` with `trainer.model` on
+    the model's device. `seed` drives `refresh`; `image_dir` holds the
+    PNGs that `image_bytes` serves."""
 
-    Defaults: the answer vocabulary is the synthetic identity vocab, the
-    store a `SyntheticPairStore`, and the model an `EkaidModel` with
-    random weights from `seed` under the config's dtype policy. `device`
-    defaults to CUDA and raises without a card unless 'cpu' is asked."""
-
-    def __init__(self, cfg=None, model: Optional[EkaidModel] = None,
-                 store=None, vocab=None, seed: int = 0, device="cuda"):
-        dev = resolve_device(device)
-        self.cfg = cfg if cfg is not None else load_config()
-        self.vocab = vocab or identity_vocab(self.cfg.speaker.vocab_size)
-        self.store = store or SyntheticPairStore(self.cfg)
-        policy = Policy.from_config(self.cfg.dtypes)
-        self.model = model or EkaidModel(
-            self.cfg, ntoken=len(self.vocab.word_to_idx), policy=policy,
-            device=dev, seed=seed)
+    def __init__(self, trainer, seed: int = 0,
+                 image_dir: Optional[str] = None):
+        self.trainer = trainer
+        self.vocab = trainer.vocab
+        self.ds = trainer.eval_ds
+        self.model = trainer.model
+        self.rng = random.Random(seed)
+        self.index = int(self.ds.split_idxs[0])
+        self.image_dir = image_dir
         cast_params_for_inference(self.model, self.model.policy)
         self.device = self.model.device
-        self.index = int(self.store.split_idxs[0])
-        self._cache: "OrderedDict[int, Dict[str, torch.Tensor]]" = \
+        self._dev_cache: "OrderedDict[int, Dict[str, torch.Tensor]]" = \
             OrderedDict()
-        self._cache_lock = threading.Lock()
-        self.answer(None)                    # warm-up: builds the kernel
+        self._dev_cache_lock = threading.Lock()
+        self._decode_lock = threading.Lock()
+        # warm-up on the batch-1 path: builds K1 and packs its weights
+        InferenceEngine.answer(self, None)
 
     def _dev_sample(self, index: int) -> Dict[str, torch.Tensor]:
-        """The pair's inputs on the device, [1, ...], uploaded once per
-        index and LRU-cached."""
-        with self._cache_lock:
-            hit = self._cache.get(index)
+        """The pair's decode inputs on the device, [1, ...], uploaded
+        once per index at the compact wire dtypes and LRU-cached."""
+        with self._dev_cache_lock:
+            hit = self._dev_cache.get(index)
             if hit is not None:
-                self._cache.move_to_end(index)
+                self._dev_cache.move_to_end(index)
                 return hit
-        s = self.store.sample(index)
-        hit = {k: torch.as_tensor(
-                   np.asarray(v).astype(_WIRE.get(k, np.asarray(v).dtype))
-                   [None], device=self.device)
-               for k, v in s.items() if k != "labels"}
-        with self._cache_lock:
-            self._cache[index] = hit
-            while len(self._cache) > _CACHE_SIZE:
-                self._cache.popitem(last=False)
+        # built and uploaded outside the lock: a duplicate upload of the
+        # same index is harmless (both are equal; the last one stays)
+        s = compact_wire(self.ds.sample(index))
+        hit = {k: torch.as_tensor(np.asarray(v)[None], device=self.device)
+               for k, v in s.items() if k not in _NOT_INPUTS}
+        with self._dev_cache_lock:
+            self._dev_cache[index] = hit
+            while len(self._dev_cache) > _CACHE_SIZE:
+                self._dev_cache.popitem(last=False)
         return hit
+
+    def _batch_for(self, index: int, question_ids: Optional[np.ndarray]):
+        batch = self._dev_sample(index)
+        if question_ids is not None:
+            batch = dict(batch)
+            batch["question"] = torch.as_tensor(
+                question_ids.astype(np.int32)[None], device=self.device)
+        return batch
 
     def question_to_ids(self, text: str) -> np.ndarray:
         ids = [self.vocab.word_to_idx[t] for t in treebank_tokenize(text)
                if t in self.vocab.word_to_idx]
-        q = np.zeros(self.store.questions.shape[1], np.int64)
+        q = np.zeros(self.ds.questions.shape[1], np.int64)
         q[:len(ids)] = ids[:len(q)]
         return q
 
-    def _detail_fields(self, seq: np.ndarray, mw: np.ndarray) -> dict:
+    def refresh(self) -> int:
+        """A new random pair of the split becomes the current one."""
+        self.index = int(self.rng.choice(list(self.ds.split_idxs)))
+        return self.index
+
+    def _detail_fields(self, seq: np.ndarray,
+                       mw: Optional[np.ndarray]) -> dict:
         """Per-token words and the [n, 3] bef/diff/aft module attention,
         trimmed to the generated length."""
         n = int(np.argmax(seq == 0)) if (seq == 0).any() else len(seq)
         tokens = [self.vocab.idx_to_word.get(int(i), "<unk>")
                   for i in seq[:n]]
-        return {"tokens": tokens,
-                "module_weights": np.asarray(mw[:n], np.float64
-                                             ).round(4).tolist()}
+        weights = (np.asarray(mw[:n], np.float64).round(4).tolist()
+                   if mw is not None else None)
+        return {"tokens": tokens, "module_weights": weights}
 
     def answer(self, question_text: Optional[str],
                index: Optional[int] = None, detail: bool = False) -> dict:
         idx = self.index if index is None else int(index)
         qids = self.question_to_ids(question_text) if question_text else None
-        t0 = time.perf_counter()
-        batch = self._dev_sample(idx)
-        if qids is not None:
-            batch = dict(batch)
-            batch["question"] = torch.as_tensor(
-                qids.astype(np.int32)[None], device=self.device)
-        out = self.model.decode(batch)
+        t0 = time.time()
+        batch = self._batch_for(idx, qids)
+        with self._decode_lock:
+            out = self.model.decode(batch)
         seq = out["seq"][0].cpu().numpy()    # waits for the device
         res = {"answer": self.vocab.decode(seq), "index": idx,
-               "latency_ms": round(1000 * (time.perf_counter() - t0), 2),
+               "latency_ms": round(1000 * (time.time() - t0), 2),
                "question_tokens": (qids[qids > 0].tolist()
                                    if qids is not None else None)}
         if detail:
@@ -124,21 +136,44 @@ class InferenceEngine:
                 seq, out["module_weights"][0].cpu().numpy()))
         return res
 
+    def sample_info(self, index: Optional[int] = None) -> dict:
+        idx = self.index if index is None else int(index)
+        s = self.ds.sample(idx)
+        return {"index": idx,
+                "question": self.vocab.decode(s["question"]),
+                "gt_answer": self.vocab.decode(s["labels"][1:])}
+
+    def image_bytes(self, index: Optional[int] = None,
+                    which: str = "main") -> bytes:
+        """PNG bytes of one image of the pair ('main' or the reference
+        image), from `image_dir`/<feature row>.png."""
+        if self.image_dir is None:
+            raise FileNotFoundError("server started without --image_dir")
+        idx = self.index if index is None else int(index)
+        col = 0 if which == "main" else 1
+        img_row = int(self.ds.feature_idx[idx][col])
+        with open(os.path.join(self.image_dir, f"{img_row}.png"), "rb") as f:
+            return f.read()
+
 
 def main(argv=None):
     p = argparse.ArgumentParser(
-        description="Answer questions over the synthetic pair store")
+        description="Answer questions over the synthetic eval split")
     p.add_argument("--cfg", default=None, help="YAML config overlay")
     p.add_argument("--n", type=int, default=4, help="questions to answer")
-    p.add_argument("--seed", type=int, default=0, help="weight seed")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--workdir", default=os.path.join("build",
+                                                     "ekaid_engine"))
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default; raises without a card) or 'cpu'")
     a = p.parse_args(argv)
-    engine = InferenceEngine(load_config(a.cfg), seed=a.seed,
-                             device=resolve_device(a.device))
-    idxs = engine.store.split_idxs
+    from ekaid_torch.train.train import build_synthetic_trainer
+    cfg = load_config(a.cfg) if a.cfg else default_config()
+    engine = InferenceEngine(build_synthetic_trainer(cfg, a.workdir,
+                                                     device=a.device))
+    idxs = engine.ds.split_idxs
     for i in range(a.n):
         idx = int(idxs[i % len(idxs)])
-        text = engine.vocab.decode(engine.store.questions[idx])
+        text = engine.vocab.decode(engine.ds.questions[idx])
         print(json.dumps({"question": text,
                           **engine.answer(text, idx, detail=True)}))
 

@@ -142,6 +142,10 @@ class Optimizer:
                           for k, v in self.slots.items()}}
 
     def load_state_dict(self, sd: dict) -> None:
+        if set(sd["slots"]) != set(self.slots):
+            raise ValueError(f"optimizer kind {self.cfg.type!r} keeps slots "
+                             f"{sorted(self.slots)}; the state holds "
+                             f"{sorted(sd['slots'])}")
         self.count = int(sd["count"])
         with torch.no_grad():
             for k, held in self.slots.items():

@@ -19,7 +19,9 @@ the loader's threads in numpy; the trainer copies the next one to the
 card from pinned memory while the current step runs. The optimizer
 state checkpoints with the parameters, and `--resume` continues from
 the exact batch where the run stopped. One device only: a data or model
-mesh wider than 1 and beam-search eval raise.
+mesh wider than 1 raises. `evaluate(beam_size > 1)` decodes with beam
+search (`EkaidModel.decode_beam`, plain torch) from the loader's wire
+batches.
 """
 
 from __future__ import annotations
@@ -235,19 +237,23 @@ class Trainer:
 
     def evaluate(self, max_batches: Optional[int] = None,
                  beam_size: int = 1, use_cache: Optional[bool] = None):
-        """Greedy decode over the eval split, then the caption metrics
-        and answer accuracy. use_cache: feed the decode from the device
-        image cache (default: when data.eval_device_cache > 0) or from
-        the loader's compact wire batches; both give the same tokens."""
-        if beam_size > 1:
-            raise NotImplementedError("beam-search eval: not ported")
+        """Greedy decode (beam search when beam_size > 1) over the eval
+        split, then the caption metrics and answer accuracy. use_cache:
+        feed the greedy decode from the device image cache (default:
+        when data.eval_device_cache > 0) or from the loader's compact
+        wire batches; both give the same tokens. Beam search reads the
+        wire batches."""
         cfg = self.cfg
+        decode = self.model.decode
+        if beam_size > 1:
+            def decode(batch):
+                return self.model.decode_beam(batch, beam_size=beam_size)
         loader = Loader(self.eval_ds, shuffle=False, pad_final=True,
                         num_threads=cfg.data.num_workers,
                         prefetch=cfg.data.prefetch, wire=cfg.data.eval_wire)
         if use_cache is None:
             use_cache = cfg.data.eval_device_cache > 0
-        if use_cache:
+        if use_cache and beam_size == 1:
             batches = self._cached_batches(
                 loader, max(1, cfg.data.eval_device_cache))
         else:
@@ -265,7 +271,7 @@ class Trainer:
         for i, (idxs, batch) in enumerate(batches):
             if max_batches is not None and i >= max_batches:
                 break
-            nxt = (idxs, self.model.decode(batch))
+            nxt = (idxs, decode(batch))
             if pending is not None:
                 flush(*pending)
             pending = nxt

@@ -6,6 +6,12 @@ A checkpoint is `<directory>/<name>.pt`, where name is the step or
 update count, which is the schedule's position. The resolved config
 goes beside it as `cfg.json`, and the best checkpoint's metric as
 `best_metric.json`. Only the newest `keep` step checkpoints are kept.
+
+The reference package's snapshots are orbax directories in the same
+places (`<directory>/<step>/`, `<directory>/best/`). `restore` and
+`latest_step` see them where no `<name>.pt` is there (the port's own
+files come first) and read them through `utils/orbax_import.py`, which
+needs tensorstore.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import re
 from typing import Optional
 
 import torch
+
+from ekaid_torch.utils import orbax_import
 
 _STEP = re.compile(r"^(\d+)\.pt$")
 
@@ -62,24 +70,39 @@ class CheckpointManager:
 
     def restore(self, state, name: Optional[str] = None):
         """Load checkpoint `name` (default: the latest step) into
-        `state` in place, onto its model's device; returns it."""
+        `state` in place, onto its model's device; returns it. `<name>.pt`
+        first, else the reference's orbax directory `<name>/`."""
         if name is None:
             name = self.latest_step()
             if name is None:
                 raise FileNotFoundError(
                     f"no checkpoints in {self.directory}")
-        sd = torch.load(self._path(name), map_location=state.model.device,
-                        weights_only=True)
-        state.load_state_dict(sd)
-        return state
+        if os.path.exists(self._path(name)):
+            sd = torch.load(self._path(name),
+                            map_location=state.model.device,
+                            weights_only=True)
+            state.load_state_dict(sd)
+            return state
+        orbax_dir = os.path.join(self.directory, str(name))
+        if orbax_import.is_orbax_dir(orbax_dir):
+            return orbax_import.restore_vqa(state, orbax_dir)
+        raise FileNotFoundError(f"no checkpoint {name!r} in "
+                                f"{self.directory}")
 
     def steps(self):
+        """The steps of the port's own checkpoints."""
         return sorted(int(m.group(1)) for m in map(
             _STEP.match, os.listdir(self.directory)) if m)
 
+    def orbax_steps(self):
+        """The steps of the reference's orbax snapshots."""
+        return sorted(int(d) for d in os.listdir(self.directory)
+                      if d.isdigit() and orbax_import.is_orbax_dir(
+                          os.path.join(self.directory, d)))
+
     def latest_step(self) -> Optional[int]:
-        steps = self.steps()
-        return steps[-1] if steps else None
+        steps = set(self.steps()) | set(self.orbax_steps())
+        return max(steps) if steps else None
 
     def _gc(self):
         for s in self.steps()[:-self.keep]:

@@ -25,7 +25,7 @@ loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "orbax", "ekaid_tpu"))
 host = sorted(m for m in sys.modules
-              if m.split(".")[0] in ("h5py", "PIL", "pandas"))
+              if m.split(".")[0] in ("h5py", "PIL", "pandas", "tensorstore"))
 print(json.dumps({"modules": names, "loaded": loaded, "host": host}))
 """
 
@@ -50,14 +50,17 @@ def test_port_imports_no_jax_and_no_reference_package(probe):
                  "train.train", "train.score", "data.pipeline",
                  "data.device_cache", "data.vocab", "metrics.caption",
                  "metrics.coco", "metrics.meteor_resources",
-                 "utils.logging", "utils.checkpoint"):
+                 "utils.logging", "utils.checkpoint", "utils.orbax_import",
+                 "train.test", "serving.server", "serving.webui",
+                 "serving.client"):
         assert f"ekaid_torch.{name}" in probe["modules"], name
     assert probe["loaded"] == []
 
 
 def test_port_imports_no_optional_host_packages(probe):
-    """h5py (the graph file), PIL (PNG input) and pandas (the CheXpert
-    CSV) load only when used: the card's machine has none of them."""
+    """h5py (the graph file), PIL (PNG input), pandas (the CheXpert and
+    question CSVs) and tensorstore (orbax checkpoints) load only when
+    used: the card's machine has none of them."""
     assert probe["host"] == []
 
 

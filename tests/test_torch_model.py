@@ -24,6 +24,7 @@ from ekaid_torch.data.vocab import Vocabulary
 from ekaid_torch.models.ekaid import EkaidModel
 from ekaid_torch.serving import engine as engine_mod
 from ekaid_torch.serving.engine import InferenceEngine
+from ekaid_torch.train.train import build_synthetic_trainer
 
 CONFIGS = Path(__file__).resolve().parent.parent / "configs"
 
@@ -52,27 +53,28 @@ def test_flagship_width_decode_matches_jax():
 
 
 @pytest.fixture(scope="module")
-def engine_setup():
-    """A tiny f32 model behind the port's engine, with the reference
-    params."""
+def engine_setup(tmp_path_factory):
+    """A tiny f32 synthetic trainer behind the port's engine, its model
+    holding the reference params."""
     cfg = tiny_cfg()
     cfg = cfg.replace(dtypes=cfg.dtypes.replace(compute_dtype="float32"))
     jb = {k: jnp.asarray(v) for k, v in synthetic_batch(cfg, 2).items()}
     flax = JaxModel(cfg, ntoken=NTOKEN, policy=JF32)
     tree = init_flax(flax, jb, train=False)
-    model = load_flax_params(
-        EkaidModel(port_cfg(cfg), NTOKEN, device="cpu", seed=None), tree)
-    engine = InferenceEngine(port_cfg(cfg), model=model, device="cpu")
+    trainer = build_synthetic_trainer(
+        port_cfg(cfg), str(tmp_path_factory.mktemp("engine")), device="cpu")
+    load_flax_params(trainer.model, tree)
+    engine = InferenceEngine(trainer)
     return cfg, flax, _jax_tree(tree), engine
 
 
 def test_pair_store_equals_jax_synthetic_dataset(engine_setup):
     cfg, _, _, engine = engine_setup
     ds = synthetic_dataset(cfg, "test")
-    np.testing.assert_array_equal(engine.store.split_idxs, ds.split_idxs)
-    np.testing.assert_array_equal(engine.store.questions, ds.questions)
+    np.testing.assert_array_equal(engine.ds.split_idxs, ds.split_idxs)
+    np.testing.assert_array_equal(engine.ds.questions, ds.questions)
     for idx in ds.split_idxs[:2]:
-        want, got = ds.sample(int(idx)), engine.store.sample(int(idx))
+        want, got = ds.sample(int(idx)), engine.ds.sample(int(idx))
         for k in got:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
@@ -80,10 +82,11 @@ def test_pair_store_equals_jax_synthetic_dataset(engine_setup):
 @pytest.mark.parametrize("text", ["w5 w9, w12?", None])
 def test_engine_answer_matches_jax_decode(engine_setup, text):
     cfg, flax, tree, engine = engine_setup
-    idx = int(engine.store.split_idxs[1])
+    idx = int(engine.ds.split_idxs[1])
     res = engine.answer(text, idx, detail=True)
     sample = {k: v[None] for k, v in
-              compact_wire(engine.store.sample(idx)).items()}
+              compact_wire(engine.ds.sample(idx)).items()
+              if k != "pair_index"}
     if text is not None:
         sample["question"] = engine.question_to_ids(text).astype(
             np.int32)[None]
@@ -102,16 +105,16 @@ def test_engine_answer_matches_jax_decode(engine_setup, text):
 
 def test_engine_caches_each_pair_once(engine_setup):
     engine = engine_setup[3]
-    idx = int(engine.store.split_idxs[2])
+    idx = int(engine.ds.split_idxs[2])
     first = engine._dev_sample(idx)
     assert engine._dev_sample(idx) is first
     assert first["d_feats"].dtype == torch.float16
     assert first["d_adj"].dtype == torch.int8
 
 
-def test_engine_main_prints_one_json_line_per_question(capsys):
+def test_engine_main_prints_one_json_line_per_question(capsys, tmp_path):
     engine_mod.main(["--cfg", str(CONFIGS / "smoke.yaml"), "--n", "2",
-                     "--device", "cpu"])
+                     "--device", "cpu", "--workdir", str(tmp_path)])
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 2
     for line in lines:
@@ -135,7 +138,7 @@ def test_config_copy_loads_reference_yaml(name):
     assert got == want
 
 
-def test_entry_points_raise_without_cuda():
+def test_entry_points_raise_without_cuda(tmp_path):
     """Nothing falls back to the CPU on its own."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -143,4 +146,5 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         EkaidModel(cfg, NTOKEN)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        InferenceEngine(cfg)
+        engine_mod.main(["--cfg", str(CONFIGS / "smoke.yaml"),
+                         "--workdir", str(tmp_path)])

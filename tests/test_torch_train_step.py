@@ -20,7 +20,7 @@ from ekaid_tpu.models.ekaid import total_loss as jax_total_loss
 from ekaid_tpu.train import step as jstep
 from ekaid_tpu.utils.dtypes import F32 as JF32
 from ekaid_torch.convert import flatten, load_flax_params, \
-    load_optax_adam_state
+    load_optax_state
 from ekaid_torch.models.ekaid import EkaidModel
 from ekaid_torch.train import step as pstep
 
@@ -246,9 +246,9 @@ def test_adam_state_carried_from_jax_continues(ref):
     model = _port(cfg, jax.tree.map(np.asarray, params))
     state = pstep.init_state(model, port_cfg(cfg).train.optim.replace(
         **oc.__dict__), steps_per_epoch=1)
-    load_optax_adam_state(state.opt, jax.tree.map(np.asarray, adam.mu),
-                          jax.tree.map(np.asarray, adam.nu),
-                          int(adam.count))
+    load_optax_state(state.opt, {"mu": jax.tree.map(np.asarray, adam.mu),
+                                 "nu": jax.tree.map(np.asarray, adam.nu)},
+                     int(adam.count))
     state.step = 2
     assert state.opt.lr() == pytest.approx(oc.lr * oc.gamma ** 2)
     pstep.train_step(state, batches[2], 0, ATT_REG, train=False)

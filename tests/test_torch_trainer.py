@@ -67,8 +67,9 @@ def test_steps_and_evals_write_their_files(tmp_path):
     s2, p2 = tr.evaluate(max_batches=2, use_cache=False)
     assert p1 == p2 and s1 == s2 and len(p1) == len(tr.eval_ds) == 4
     assert tr._eval_cache.stats()["misses"] > 0
-    with pytest.raises(NotImplementedError, match="beam"):
-        tr.evaluate(beam_size=3)
+    # beam search decodes the same pairs from the wire batches
+    s3, p3 = tr.evaluate(max_batches=2, beam_size=3)
+    assert set(p3) == set(p1) and set(s3) == set(s1)
 
 
 CORPUS = [
