@@ -131,7 +131,31 @@ Phases, each fatal on failure:
      extraction runner's --ana_ckpt/--dis_ckpt on `.pt` state dicts of
      the seeded detectors, its records bit-equal to the in-process
      path's on the same weights and images, K2 launched twice. K1's
-     and K2's launches here add to their `kernels` entries.
+     and K2's launches here add to their `kernels` entries;
+ 12. the detector's training path: (a) one f32 `FasterRCNN.losses`
+     step (full widths, K=26, 256^2 images, batch 2, pre/post NMS
+     2000/1000) on the card, on the CPU and with every f32 cast promoted
+     to f64, from the same seeded weights, images, gts and draws (drawn
+     on the CPU): whether the card's own discrete choices equal the
+     CPU's is recorded, then the card and f64 steps replay the CPU's
+     choices: losses card-CPU within DET_LOSS_RTOL, each gradient
+     tensor of the card no further from f64 than TRAIN_GRAD_RATIO x the
+     CPU's + TRAIN_GRAD_TOL; K2 refuses a pyramid that requires grad;
+     (b) the flagship `DetectorTrainer` (anatomy, K=26, bf16, 1024^2,
+     batch 8, augmentation on) over DET_TRAIN_IMAGES synthetic blob
+     images for DET_STEPS steps: every logged loss finite, the first
+     update leaving every parameter bit-equal (lr 0 at count 0); then
+     `validation_loss` and `evaluate(proposals=True)`, K2 launched once
+     an eval batch, and one eval batch's pooled features held against
+     K2's plain version within one bf16 ulp; (c) the trained weights
+     saved as a `.pt` and read by the extraction runner's --ana_ckpt:
+     records bit-equal to the in-process `Extractor` on the same
+     weights, K2 launched twice; (d) `train_detector.main` with
+     --synthetic 8 --steps 2 at 256^2 and --ckpt_out; (e) times: train
+     step (median of steps 3-6), images trained/s, the forward /
+     backward / optimizer split, augmentation host ms a batch, peak
+     memory, eval images/s, one step under torch.profiler. K2's
+     launches here add to its `kernels` entry.
 Prints one `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}, after a `record:` line with every number
 as JSON. Without a CUDA device, or outside the repository, it exits
@@ -208,6 +232,13 @@ SERVE_REQUESTS = 128
 SERVE_CLIENTS = 16
 PLAIN_REQUESTS = 16
 DET_IMAGES = 8
+# phase 12: the detector's training path
+DET_F32_SIZE = 256                 # the card-vs-CPU f32 loss step
+DET_F32_B = 2
+DET_LOSS_RTOL = 1e-4
+DET_STEPS = 6                      # the flagship DetectorTrainer
+DET_TRAIN_IMAGES = 16
+DET_CLI_SIZE = 256
 
 
 def log(msg: str) -> None:
@@ -2239,6 +2270,478 @@ def inference_phase(rec: dict, cfg, device: str = "cuda") -> tuple:
     return k1, k2
 
 
+class KinkReplay:
+    """The branch taken at every kink of the detector's loss step (each
+    ReLU, the stem's max-pool, `floor` in ROIAlign's level and sample
+    taps, the proposals' clip, the L1 losses' `abs`), recorded on one
+    run and imposed on later runs, which count where their own branch
+    differs (`flips`). Runs under one tape evaluate the same smooth
+    piece of the loss, so their gradients differ by arithmetic alone:
+    at f32 an element within rounding of a kink takes either branch,
+    and in a ReLU network each such element moves the gradients below
+    it by far more than rounding does."""
+
+    def __init__(self):
+        self.tape, self.flips, self.sites = [], 0, 0
+
+    def run(self, record: bool):
+        import contextlib
+        import torch
+        import torch.nn.functional as F
+        from ekaid_torch.models.detector import rpn
+        real = {"relu": torch.relu, "floor": torch.floor,
+                "abs": torch.Tensor.abs, "pool": F.max_pool2d,
+                "clip": rpn.clip_boxes}
+        pos = iter(range(1 << 62))
+
+        def take(natural):
+            if record:
+                self.tape.append(natural.detach().cpu())
+                return natural
+            want = self.tape[next(pos)].to(natural.device)
+            self.flips += int((want != natural).sum())
+            self.sites += 1
+            return want
+
+        def zero(x):
+            return torch.zeros((), dtype=x.dtype, device=x.device)
+
+        def relu(x):
+            return torch.where(take(x > 0), x, zero(x))
+
+        def floor(x):
+            return take(real["floor"](x)).to(x.dtype)
+
+        def abs_(x):
+            return torch.where(take(x >= 0), x, -x)
+
+        def pool(x, k, stride=None, padding=0, **kw):
+            out, idx = real["pool"](x, k, stride, padding=padding,
+                                    return_indices=True)
+            idx = take(idx)
+            return x.flatten(2).gather(2, idx.flatten(2)).view(out.shape)
+
+        def clip(boxes, size):
+            lo, hi = take(boxes < 0), take(boxes > size)
+            return torch.where(lo, zero(boxes), torch.where(
+                hi, torch.full((), float(size), dtype=boxes.dtype,
+                               device=boxes.device), boxes))
+
+        @contextlib.contextmanager
+        def patched():
+            torch.relu, torch.floor, torch.Tensor.abs = relu, floor, abs_
+            F.max_pool2d, rpn.clip_boxes = pool, clip
+            try:
+                yield self
+            finally:
+                torch.relu, torch.floor = real["relu"], real["floor"]
+                torch.Tensor.abs, F.max_pool2d = real["abs"], real["pool"]
+                rpn.clip_boxes = real["clip"]
+        return patched()
+
+
+def _det_f64_grads(det, state, images, gt, choices, device: str):
+    """The gradients of `FasterRCNN.losses` with every f32 cast promoted
+    to f64 (`Tensor.float` patched for the call), the given choices
+    replayed: the step in near-exact arithmetic."""
+    import torch
+    from ekaid_torch.models.detector import FasterRCNN
+    from ekaid_torch.utils.dtypes import Policy
+    f64 = Policy(param_dtype=torch.float64, compute_dtype=torch.float64,
+                 softmax_dtype=torch.float64)
+    model = FasterRCNN(det, num_classes=det.num_anatomy_classes,
+                       policy=f64)
+    model.load_state_dict(state)
+    model.double().to(device)
+    real = torch.Tensor.float
+    torch.Tensor.float = lambda self, *a, **k: self.double()
+    try:
+        out, _ = model.losses(
+            images.double().to(device), gt[0].double().to(device),
+            gt[1].to(device), gt[2].to(device),
+            choices={k: v.to(device) for k, v in choices.items()})
+        out["total"].backward()
+    finally:
+        torch.Tensor.float = real
+    return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+
+def det_card_vs_cpu(rec: dict, cfg, device: str = "cuda") -> None:
+    """12a. One f32 `FasterRCNN.losses` step at the config's widths,
+    K=26, DET_F32_SIZE^2 images, batch DET_F32_B, on the card and on the
+    CPU from the same seeded weights, images, gts and draws (drawn on the
+    CPU, copied to the card), and in f64. The card's own choices are
+    compared with the CPU's (recorded); the card and f64 steps then
+    replay the CPU's choices and the branch of each of its kinks
+    (`KinkReplay`; the elements where theirs would differ are recorded).
+    Gates: every loss within DET_LOSS_RTOL card to CPU, and each
+    gradient tensor of the card no further from f64 than
+    TRAIN_GRAD_RATIO x the CPU's + TRAIN_GRAD_TOL (phase 10a's rule)."""
+    import torch
+    from ekaid_torch.models.detector import FasterRCNN
+    from ekaid_torch.models.detector.faster_rcnn import loss_draws
+    from ekaid_torch.models.layers import init_params
+    from ekaid_torch.ops import roi_kernels as rk
+    from ekaid_torch.train.train_detector import synthetic_blob_dataset
+    from ekaid_torch.utils.dtypes import F32
+    det = cfg.detector.replace(image_size=DET_F32_SIZE,
+                               batch_size=DET_F32_B)
+    k = det.num_anatomy_classes
+    cpu = FasterRCNN(det, num_classes=k, policy=F32)
+    init_params(cpu, torch.Generator().manual_seed(SEED))
+    state = {n: t.clone() for n, t in cpu.state_dict().items()}
+    images, boxes, classes, valid = (torch.as_tensor(a) for a in
+                                     synthetic_blob_dataset(
+                                         DET_F32_B, DET_F32_SIZE, k,
+                                         seed=SEED + 5))
+    # two gts an image on the largest proposals, moved by 6-12% of their
+    # side: foreground ROIs, so the ROI box loss and its route through
+    # the box targets to the RPN's deltas are exercised
+    with torch.no_grad():
+        props = cpu.proposals(cpu.features(images), train=True)[0]
+    side = torch.minimum(props[..., 2] - props[..., 0],
+                         props[..., 3] - props[..., 1])
+    move = torch.empty(DET_F32_B, 2, 4).uniform_(
+        0.06, 0.12, generator=torch.Generator().manual_seed(SEED + 7))
+    move = move * torch.tensor([1.0, -1.0, -1.0, 1.0])
+    for b in range(DET_F32_B):
+        big = torch.argsort(side[b], descending=True, stable=True)[:2]
+        boxes[b, :2] = props[b, big] + move[b] * side[b, big][:, None]
+        valid[b, :2] = True
+    gt = (boxes, classes, valid)
+    draws = loss_draws(DET_F32_B, cpu.num_anchors(), det.post_nms_topk,
+                       torch.Generator().manual_seed(SEED + 6))
+
+    def step(model, dev, choices=None):
+        t0 = time.perf_counter()
+        out, made = model.losses(
+            images.to(dev), *(g.to(dev) for g in gt),
+            draws={n: d.to(dev) for n, d in draws.items()},
+            choices=None if choices is None else {
+                n: c.to(dev) for n, c in choices.items()})
+        out["total"].backward()
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        return ({n: float(v.detach()) for n, v in out.items()},
+                {n: c.cpu() for n, c in made.items()}, grads,
+                time.perf_counter() - t0)
+
+    kinks = KinkReplay()
+    _, ch_c, _, _ = step(cpu, "cpu")
+    cpu.zero_grad(set_to_none=True)
+    with kinks.run(record=True):            # the choices' own path
+        l_c, _, g_c, s_c = step(cpu, "cpu", ch_c)
+    card = FasterRCNN(det, num_classes=k, policy=F32)
+    card.load_state_dict(state)
+    card.to(device)
+    _, ch_own, _, _ = step(card, device)
+    same = {n: bool(torch.equal(ch_own[n], ch_c[n])) for n in ch_c}
+    card.zero_grad(set_to_none=True)
+    with kinks.run(record=False):
+        l_g, ch_g, g_g, s_g = step(card, device, ch_c)
+    flips_card, kinks.flips = kinks.flips, 0
+    if not all(torch.equal(ch_g[n], ch_c[n]) for n in ch_c):
+        raise AssertionError("12a: the replayed choices came back changed")
+    with kinks.run(record=False):
+        g64 = _det_f64_grads(det, state, images, gt, ch_c, device)
+    flips_64 = kinks.flips
+    rel = {n: abs(l_g[n] - l_c[n]) / max(abs(l_c[n]), 1e-30) for n in l_c}
+    card64, cpu64 = _grad_gaps(g_g, g64), _grad_gaps(g_c, g64)
+    ggap = _grad_gaps(g_g, g_c)
+    over = {n: (card64[n], cpu64[n]) for n in g64
+            if not card64[n] <= TRAIN_GRAD_RATIO * cpu64[n] + TRAIN_GRAD_TOL}
+    # K2 has no backward: with grad mode on it refuses such a pyramid
+    pyr = card.features(images.to(device).float())
+    try:
+        rk.multilevel_roi_align_canvas(pyr[:4], boxes.to(device),
+                                       (0.25, 0.125, 0.0625, 0.03125))
+        refused = False
+    except rk.NoGradKernelError:
+        refused = True
+    del pyr
+    r = rec["det_train_f32"] = {
+        "losses_card": l_g, "losses_cpu": l_c, "loss_rel_err": rel,
+        "own_choices_equal": same,
+        "grad_gap_card_cpu": max(ggap.values()),
+        "grad_gap_card_cpu_worst": max(ggap, key=ggap.get),
+        "grad_gap_to_f64": {"card": max(card64.values()),
+                            "cpu": max(cpu64.values())},
+        "grad_gap_to_f64_worst": max(card64, key=card64.get),
+        "grad_gap_to_f64_margin": min(
+            TRAIN_GRAD_RATIO * cpu64[n] + TRAIN_GRAD_TOL - card64[n]
+            for n in g64),
+        "grad_gap_to_f64_excess": [
+            (n, card64[n], cpu64[n]) for n in sorted(
+                g64, key=lambda n: cpu64[n] - card64[n])[:3]],
+        "k2_refuses_grad": refused, "kink_sites": len(kinks.tape),
+        "kink_flips": {"card": flips_card, "f64": flips_64},
+        "step_s_card": s_g, "step_s_cpu": s_c}
+    log(f"[12a] f32 detector loss step, {DET_F32_SIZE}^2 x {DET_F32_B}, "
+        f"K={k}: the card's own choices equal the CPU's: "
+        + ", ".join(f"{n} {v}" for n, v in same.items())
+        + f"; kinks replayed ({len(kinks.tape)} sites; the card's own "
+        f"branch differs at {flips_card} elements, f64's at {flips_64})"
+        + f"; replaying the CPU's choices: total {l_g['total']:.7f} vs "
+        f"{l_c['total']:.7f}, largest loss rel err {max(rel.values()):.2e} "
+        f"({max(rel, key=rel.get)}); gradients to f64: card "
+        f"{r['grad_gap_to_f64']['card']:.2e}, CPU "
+        f"{r['grad_gap_to_f64']['cpu']:.2e} ({r['grad_gap_to_f64_worst']}), "
+        f"least margin {r['grad_gap_to_f64_margin']:.2e}; card to CPU "
+        f"{r['grad_gap_card_cpu']:.2e} ({r['grad_gap_card_cpu_worst']}); "
+        f"K2 refuses a pyramid that requires grad: {refused}")
+    if not max(rel.values()) <= DET_LOSS_RTOL:
+        raise AssertionError(f"12a losses: card {l_g} vs CPU {l_c}")
+    if over:
+        raise AssertionError(f"12a: card gradients further from the f64 "
+                             f"step than {TRAIN_GRAD_RATIO}x the CPU's + "
+                             f"{TRAIN_GRAD_TOL}: {over}")
+    if device == "cuda" and not refused:
+        raise AssertionError("12a: K2 took an input that requires grad")
+
+
+def detector_train_phase(rec: dict, cfg, device: str = "cuda") -> int:
+    """Phase 12, the detector's training path: the card against the CPU
+    and f64 (12a), the flagship `DetectorTrainer` (12b), its weights
+    through the extraction runner (12c), the CLI (12d) and times (12e).
+    Returns K2's launches on the trainer's and the runner's paths."""
+    import shutil
+    import numpy as np
+    import torch
+    from ekaid_torch.extract import runner
+    from ekaid_torch.extract.pipeline import Extractor
+    from ekaid_torch.models.detector.faster_rcnn import FPN_SCALES
+    from ekaid_torch.ops import nms as nms_ops
+    from ekaid_torch.ops import roi_kernels as rk
+    from ekaid_torch.train import train_detector as td
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    det_card_vs_cpu(rec, cfg, device)
+
+    # ---- 12b. the flagship trainer ---------------------------------------
+    det = cfg.detector
+    k = det.num_anatomy_classes
+    work = ROOT / "build" / "det_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    arrays = td.synthetic_blob_dataset(DET_TRAIN_IMAGES, det.image_size, k,
+                                       seed=SEED)
+    data_s = time.perf_counter() - t0
+    tr = td.DetectorTrainer(cfg, k, total_steps=DET_STEPS, device=device)
+    p0 = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+    logged, first_equal, nms_reads, select_ms, last_args = [], [], [], [], []
+    step, generate = tr.train_step, tr.model._generate
+
+    def timed_generate(*a, **kw):
+        """The proposals' top-k and blocked NMS, timed (synchronised)."""
+        sync()
+        t = time.perf_counter()
+        out = generate(*a, **kw)
+        sync()
+        select_ms[-1] += (time.perf_counter() - t) * 1e3
+        return out
+
+    def logged_step(*a, **kw):
+        reads = nms_ops._survivor_mask.host_reads
+        select_ms.append(0.0)
+        last_args[:] = a
+        out = step(*a, **kw)
+        nms_reads.append(nms_ops._survivor_mask.host_reads - reads)
+        logged.append({n: float(v) for n, v in out.items()})
+        if len(logged) == 1:
+            first_equal.append(all(torch.equal(p, p0[n]) for n, p in
+                                   tr.model.named_parameters()))
+        return out
+
+    tr.train_step, tr.model._generate = logged_step, timed_generate
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr.fit(arrays, DET_STEPS, log_every=DET_STEPS)
+    fit_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() / 2**20
+            if device == "cuda" else None)
+    del p0
+    tr.train_step = step
+    del tr.model._generate
+    val = tr.validation_loss(arrays)
+    rk.multilevel_roi_align_canvas.launches = 0
+    scores = tr.evaluate(arrays, proposals=True)
+    sync()
+    k2 = rk.multilevel_roi_align_canvas.launches
+    eval_batches = DET_TRAIN_IMAGES // det.batch_size
+    r = rec["det_train"] = {
+        "losses": logged, "first_update_equal": first_equal[0],
+        "val": val, "scores": {n: v for n, v in scores.items()
+                               if not n.startswith("AP50-")},
+        "k2_launches_eval": k2, "peak_mb": peak, "data_s": data_s,
+        "fit_images_per_s": DET_STEPS * det.batch_size / fit_s,
+        "proposal_select_ms": select_ms, "nms_host_reads": nms_reads}
+    log(f"[12b] DetectorTrainer, anatomy K={k}, {cfg.dtypes.compute_dtype}, "
+        f"{det.image_size}^2, batch {det.batch_size}, {DET_TRAIN_IMAGES} "
+        f"images: {len(logged)} steps, totals "
+        f"{[round(x['total'], 4) for x in logged]}, grad norms "
+        f"{[round(x['grad_norm'], 2) for x in logged]}; proposal top-k + "
+        f"blocked NMS ms a step {['%.0f' % x for x in select_ms]} with "
+        f"{nms_reads} host reads; first update left "
+        f"every parameter bit-equal: {first_equal[0]}; val_total "
+        f"{val['val_total']:.4f}; eval {r['scores']}; K2 launches {k2} for "
+        f"{eval_batches} eval batches")
+    if len(logged) != DET_STEPS or not all(
+            np.isfinite(list(x.values())).all() for x in logged):
+        raise AssertionError(f"12b: logged losses {logged}")
+    if not first_equal[0]:
+        raise AssertionError("12b: the first update (lr 0) moved a "
+                             "parameter")
+    if not np.isfinite(list(val.values())).all():
+        raise AssertionError(f"12b: validation losses {val}")
+    if k2 != eval_batches:
+        raise AssertionError(f"12b: K2 launched {k2} times for "
+                             f"{eval_batches} eval batches")
+    # one eval batch's pooled features against K2's plain version
+    with torch.no_grad():
+        x = torch.as_tensor(arrays[0][:det.batch_size]).to(device)
+        pyr = tr.model.features(x)
+        boxes, _, _ = tr.model.proposals(pyr)
+        fm = [p.contiguous() for p in pyr[:4]]
+        out = rk.multilevel_roi_align_canvas(fm, boxes, FPN_SCALES)
+        ref = rk.multilevel_roi_align_canvas_plain(fm, boxes, FPN_SCALES)
+        sync()
+    o, p = out.float(), ref.float()
+    gap = (o - p).abs()
+    r["k2_pool_equal_share"] = (gap == 0).sum().item() / gap.numel()
+    r["k2_pool_max_gap"] = gap.max().item()
+    log(f"     K2 on an eval batch's pyramid ({fm[0].dtype}, rois "
+        f"{tuple(boxes.shape)}) vs its plain version: equal "
+        f"{r['k2_pool_equal_share']:.6f}, max gap {r['k2_pool_max_gap']:.3g}")
+    if not torch.isfinite(o).all() or \
+            (gap > bf16_ulp(torch.maximum(o.abs(), p.abs()))).any():
+        raise AssertionError("12b: K2 on an eval batch exceeds one bf16 ulp "
+                             "of its plain version")
+    del pyr, fm, out, ref, o, p, gap
+
+    # ---- 12c. the trained weights through the extraction runner ---------
+    path = work / "ana.pt"
+    sd = tr.state_dict()
+    torch.save(sd, path)
+    real_writer, RecordSink.made = runner.H5Writer, []
+    runner.H5Writer = RecordSink
+    rk.multilevel_roi_align_canvas.launches = 0
+    try:
+        runner.main(["--ana_ckpt", str(path), "--allow_random",
+                     "--synthetic", str(DET_IMAGES),
+                     "--out", str(work / "graph.h5"), "--device", device])
+    finally:
+        runner.H5Writer = real_writer
+    sync()
+    k2_runner = rk.multilevel_roi_align_canvas.launches
+    got = RecordSink.made[0]
+    ana_apply, dis_apply = runner.build_detector_fns(
+        cfg, ana_params=sd, gen=torch.Generator().manual_seed(0),
+        device=device)
+    sink = MemorySink()
+    Extractor(ana_apply, dis_apply, det.num_disease_classes).run(
+        runner.synthetic_batches(DET_IMAGES, det.image_size,
+                                 det.extract_batch_size), sink)
+    want_k2 = 2 * DET_IMAGES // det.extract_batch_size
+    if k2_runner != want_k2 or len(got.records) != DET_IMAGES:
+        raise AssertionError(f"12c runner: K2 launches {k2_runner}, "
+                             f"records {len(got.records)}")
+    for i, (a, b) in enumerate(zip(got.records, sink.records)):
+        for key in b:
+            if not np.array_equal(a[key], b[key]):
+                raise AssertionError(f"12c runner record {i}: {key} differs "
+                                     "from the in-process path")
+    found = check_records(got.records, det, "trained")
+    r["runner"] = {"k2_launches": k2_runner, "anatomy_found": found}
+    log(f"[12c] runner --ana_ckpt on the trained .pt: {len(got.records)} "
+        f"records bit-equal to the in-process path, anatomy found "
+        f"{found:.3f}, K2 launches {k2_runner}")
+
+    # ---- 12d. the CLI ------------------------------------------------------
+    cli_pt = work / "cli.pt"
+    t0 = time.perf_counter()
+    cli_scores = td.main(["--synthetic", "8", "--steps", "2",
+                          "--image_size", str(DET_CLI_SIZE),
+                          "--batch_size", "4", "--ckpt_out", str(cli_pt),
+                          "--device", device])
+    r["cli_s"] = time.perf_counter() - t0
+    cli_sd = torch.load(cli_pt, weights_only=True)
+    if set(cli_sd) != set(sd) or "AP50" not in cli_scores:
+        raise AssertionError("12d: the CLI's checkpoint or scores")
+    log(f"[12d] train_detector.main --synthetic 8 --steps 2 --image_size "
+        f"{DET_CLI_SIZE}: {r['cli_s']:.1f} s, AP50 {cli_scores['AP50']:.4f}, "
+        f"{cli_pt.name} with {len(cli_sd)} tensors")
+
+    # ---- 12e. times ---------------------------------------------------------
+    steps = tr.step_seconds[2:DET_STEPS]
+    r["step_ms"] = statistics.median(steps) * 1e3
+    r["step_ms_all"] = [x * 1e3 for x in tr.step_seconds[:DET_STEPS]]
+    r["images_per_s"] = det.batch_size / statistics.median(steps)
+    r["augment_ms_per_batch"] = statistics.median(tr.augment_seconds) * 1e3
+    r["augment_ms_all"] = [x * 1e3 for x in tr.augment_seconds]
+    batch = next(td.batches(arrays, det.batch_size, shuffle=False, seed=0))
+    tensors = tr._tensors(*batch)
+    draws = tr.draws(det.batch_size, SEED, 0, td.TRAIN_DRAWS)
+    m = tr.model
+    split = {}
+    for _ in range(2):                 # the first warms up
+        m.zero_grad(set_to_none=True)
+        sync()
+        t0 = time.perf_counter()
+        losses, _ = m.losses(*tensors, draws)
+        sync()
+        t1 = time.perf_counter()
+        losses["total"].backward()
+        sync()
+        t2 = time.perf_counter()
+        tr.opt.step([p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in tr.opt.params])
+        sync()
+        t3 = time.perf_counter()
+        split = {"forward_ms": (t1 - t0) * 1e3,
+                 "backward_ms": (t2 - t1) * 1e3,
+                 "optimizer_ms": (t3 - t2) * 1e3}
+    r["split"] = split
+    tr.evaluate(arrays)                 # warm
+    sync()
+    t0 = time.perf_counter()
+    tr.evaluate(arrays)
+    sync()
+    r["eval_images_per_s"] = DET_TRAIN_IMAGES / (time.perf_counter() - t0)
+    prof = r["profile"] = device_busy(lambda: tr.train_step(
+        *tensors, draws)) if device == "cuda" else None
+    # the last fit step's batch and draws again (its step was the slowest
+    # in earlier runs), on the weights of now
+    prof_last = r["profile_last_batch"] = device_busy(
+        lambda: tr.train_step(*last_args), reps=1) \
+        if device == "cuda" else None
+    log(f"[12e] on {rec.get('card', device)}: train step "
+        f"{r['step_ms']:.1f} ms (median of steps 3-{DET_STEPS}, all "
+        f"{['%.1f' % t for t in r['step_ms_all']]}), "
+        f"{r['images_per_s']:.2f} images trained/s (the whole `fit`, "
+        f"augmentation and first steps included: "
+        f"{r['fit_images_per_s']:.2f}); forward "
+        f"{split['forward_ms']:.1f} / backward {split['backward_ms']:.1f} / "
+        f"optimizer {split['optimizer_ms']:.1f} ms; augmentation "
+        f"{r['augment_ms_per_batch']:.1f} ms a batch on the host (median; "
+        f"all {['%.0f' % t for t in r['augment_ms_all']]}); peak memory "
+        f"{peak} MiB; eval {r['eval_images_per_s']:.2f} images/s; data "
+        f"made in {data_s:.1f} s")
+    for what, pr in (("the first batch", prof),
+                     (f"step {DET_STEPS}'s batch", prof_last)):
+        if pr:
+            log(f"     one train step on {what} under the profiler: "
+                f"{pr['wall_ms']:.1f} ms host wall, the card busy "
+                f"{pr['busy_ms']:.1f} ms ({pr['busy_share']:.3f}), "
+                f"{pr['launches']:.0f} device activities; top by device "
+                "time: " + "; ".join(
+                    f"{kk['name']} {kk['ms']:.2f} ms x{kk['launches']:.0f}"
+                    for kk in pr["top"]))
+    shutil.rmtree(work, ignore_errors=True)
+    return k2 + k2_runner
+
+
 def main() -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -2439,10 +2942,14 @@ def main() -> dict:
     # ---- 11. the inference entry points on phase 10's snapshots ----------
     k1, k2 = inference_phase(rec, cfg)
     kernels_line[0]["launches"] += k1
-    next(k for k in kernels_line
-         if k["name"] == "roi_align_canvas")["launches"] += k2
+    k2_entry = next(k for k in kernels_line
+                    if k["name"] == "roi_align_canvas")
+    k2_entry["launches"] += k2
     import shutil
     shutil.rmtree(ROOT / "build" / "train_phase", ignore_errors=True)
+
+    # ---- 12. the detector's training path, whose evals run K2 ------------
+    k2_entry["launches"] += detector_train_phase(rec, cfg)
     kline = {"kernels": kernels_line}
     log("record: " + json.dumps(rec))
     print(json.dumps(kline))

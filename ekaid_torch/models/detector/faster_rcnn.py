@@ -7,26 +7,63 @@ returns exactly `num_classes` ordered nodes per image with their fc2
 features (zero-filled where a class is missing); `detect` returns the
 top-`max_out` detections with their proposal features. The reference
 `vmap`s its per-image selection; here the image is a batch dimension.
-The training losses come with the training slice.
+
+`losses` is the training objective: the RPN loss over every anchor of
+every level, and the ROI loss over 512 proposals an image sampled before
+pooling, each image's pooled through the differentiable gather form (as
+the reference's `vmap` over 2-D ROIs does; the ROIAlign kernels are
+inference only). Like the reference, nothing stops the gradient at the
+proposals: the ROI loss reaches the RPN's deltas through the pooled
+boxes and through the box targets. The random draws are an argument
+(`loss_draws`), and the discrete choices (proposals, anchor labels,
+sampled sets) come back and can be replayed.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ekaid_torch.models.detector.anchors import pyramid_anchors
 from ekaid_torch.models.detector.backbone import ResNetFPN
-from ekaid_torch.models.detector.heads import BoxHead, decode_roi_boxes
-from ekaid_torch.models.detector.rpn import RPNHead, generate_proposals
+from ekaid_torch.models.detector.heads import (BoxHead, gather_rows,
+                                               decode_roi_boxes, roi_loss,
+                                               sample_proposals)
+from ekaid_torch.models.detector.rpn import (RPNHead, generate_proposals,
+                                             proposals_at, rpn_loss)
 from ekaid_torch.ops.nms import (fast_rcnn_nms, select_top1_per_class,
                                  top1_per_class)
+from ekaid_torch.ops.roi_align import multilevel_roi_align
 from ekaid_torch.utils.dtypes import F32, Policy
 from ekaid_torch.utils.platform import resolve_roi_backend
 
 FPN_SCALES = (0.25, 0.125, 0.0625, 0.03125)      # p2..p5
+TRAIN_PRE_NMS_TOPK = 2000
+#: the discrete choices of a loss step (`FasterRCNN.losses`)
+RPN_CHOICES = ("labels", "matched", "weight")
+ROI_CHOICES = ("idx", "weight", "cls", "matched")
+CHOICES = (tuple("rpn_" + k for k in RPN_CHOICES)
+           + ("proposal_index", "proposal_valid")
+           + tuple("roi_" + k for k in ROI_CHOICES))
+
+
+def _strip(choices: Dict[str, torch.Tensor], prefix: str, keys):
+    return {k: choices[prefix + k] for k in keys}
+
+
+def loss_draws(batch: int, n_anchors: int, n_proposals: int,
+               gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    """The uniforms of one loss step, drawn from `gen` on its device:
+    per image the RPN sampling's positive and negative priorities [B,
+    n_anchors], the ROI sampling's [B, n_proposals] and the ROI
+    tie-break [B, n_proposals]."""
+    shapes = {"rpn_pos": n_anchors, "rpn_neg": n_anchors,
+              "roi_pos": n_proposals, "roi_neg": n_proposals,
+              "roi_tie": n_proposals}
+    return {k: torch.rand(batch, n, generator=gen, device=gen.device)
+            for k, n in shapes.items()}
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -63,13 +100,80 @@ class FasterRCNN(nn.Module):
         feats = self.backbone(images)
         return [feats[f"p{lvl}"] for lvl in (2, 3, 4, 5, 6)]
 
-    def proposals(self, pyramid):
+    def proposals(self, pyramid, train: bool = False):
+        """(boxes, scores, valid) [B, post_nms_topk, ...]. Training takes
+        the top 2000 of a level before the NMS, sorted exactly."""
         logits, deltas = self.rpn(pyramid)
+        return self._generate(logits, deltas, train)
+
+    def _generate(self, logits, deltas, train: bool, return_index=False):
         return generate_proposals(
             logits, deltas, self.anchors(), self.cfg.image_size,
-            pre_nms_topk=self.cfg.pre_nms_topk,
+            pre_nms_topk=(TRAIN_PRE_NMS_TOPK if train
+                          else self.cfg.pre_nms_topk),
             post_nms_topk=self.cfg.post_nms_topk, nms_thresh=0.7,
-            topk_impl=self.cfg.rpn_topk)
+            topk_impl="exact" if train else self.cfg.rpn_topk,
+            return_index=return_index)
+
+    def num_anchors(self) -> int:
+        return sum(a.shape[0] for a in self.anchors())
+
+    def losses(self, images, gt_boxes, gt_classes, gt_valid,
+               draws: Optional[Dict[str, torch.Tensor]] = None,
+               choices: Optional[Dict[str, torch.Tensor]] = None
+               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """Training losses, the mean over the batch, and the step's
+        discrete choices. gt_boxes [B, G, 4], gt_classes [B, G], gt_valid
+        [B, G]; `draws` as `loss_draws` makes them. Returns ({'rpn_obj',
+        'rpn_box', 'roi_cls', 'roi_box', 'total'}, {CHOICES: [B, ...]}).
+
+        `choices` given replays a step's choices (the anchors behind the
+        proposals and their validity, the anchor labels, matches and
+        sampled set, the sampled proposals with their weights, labels and
+        matches) in place of making them; `draws` is then unused."""
+        pyramid = self.features(images)
+        logits, deltas = self.rpn(pyramid)
+        anchors = torch.cat(self.anchors(), 0)
+        all_logits = torch.cat(logits, 1)
+        all_deltas = torch.cat(deltas, 1)
+        d = draws or {}
+        rpn_l, rc = rpn_loss(
+            all_logits, all_deltas, anchors, gt_boxes, gt_valid,
+            d.get("rpn_pos"), d.get("rpn_neg"), choices=None
+            if choices is None else _strip(choices, "rpn_", RPN_CHOICES))
+        if choices is None:
+            # the anchors behind the proposals: a choice without a
+            # gradient; their boxes below carry it to the RPN's deltas
+            _, _, pvalid, pidx = self._generate(
+                [x.detach() for x in logits], [x.detach() for x in deltas],
+                train=True, return_index=True)
+        else:
+            pidx, pvalid = choices["proposal_index"], choices["proposal_valid"]
+        props = proposals_at(all_deltas, anchors, pidx, self.cfg.image_size)
+        if choices is None:
+            sc = sample_proposals(props.detach(), pvalid, gt_boxes,
+                                  gt_classes, gt_valid, d["roi_pos"],
+                                  d["roi_neg"], d["roi_tie"],
+                                  self.num_classes)
+        else:
+            sc = _strip(choices, "roi_", ROI_CHOICES)
+        sel = gather_rows(props, sc["idx"])             # [B, S, 4]
+        # each image's sampled ROIs through the gather form
+        pooled = torch.stack([
+            multilevel_roi_align([f[i] for f in pyramid[:4]], sel[i],
+                                 FPN_SCALES, out_size=self.cfg.roi_pool_size)
+            for i in range(sel.shape[0])])
+        _, cls_scores, box_deltas = self.box_head.head(pooled)
+        roi_l = roi_loss(cls_scores, box_deltas, sel, sc["cls"],
+                         sc["matched"], sc["weight"], gt_boxes,
+                         self.num_classes)
+        out = {k: v.mean() for k, v in {**rpn_l, **roi_l}.items()}
+        out["total"] = (out["rpn_obj"] + out["rpn_box"] + out["roi_cls"]
+                        + out["roi_box"])
+        made = {**{"rpn_" + k: v for k, v in rc.items()},
+                "proposal_index": pidx, "proposal_valid": pvalid,
+                **{"roi_" + k: v for k, v in sc.items()}}
+        return out, made
 
     def forward(self, images, topk: int = 0) -> Dict[str, torch.Tensor]:
         """Detection forward: proposals and ROI outputs for all B*R

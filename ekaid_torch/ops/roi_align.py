@@ -8,7 +8,9 @@ zeroed, the others clamped). `multilevel_roi_align` assigns each ROI to
 an FPN level with the canonical heuristic and pools every ROI with one
 gather against a table of all levels, in chunks of 256 ROIs.
 
-Feature maps are NHWC ([H, W, C] per level, one image).
+Feature maps are NHWC ([H, W, C] per level, one image). The gather form
+is differentiable with respect to the maps and the boxes: the detector's
+ROI loss trains through it, as the reference's does.
 """
 
 from __future__ import annotations
@@ -90,7 +92,11 @@ def log2_f32(x: torch.Tensor) -> torch.Tensor:
 def assign_levels(rois: torch.Tensor, min_level: int = 2,
                   max_level: int = 5, canonical_size: float = 224.0,
                   canonical_level: int = 4) -> torch.Tensor:
-    """FPN level per ROI (Detectron2 ROIPooler heuristic), int32."""
+    """FPN level per ROI (Detectron2 ROIPooler heuristic), int32. A
+    discrete choice, taken on the detached boxes: no gradient flows
+    through it (`jax.grad` gives 0 there; autograd through floor of
+    sqrt(0) would give NaN for a zero-area ROI)."""
+    rois = rois.detach()
     w = torch.clamp(rois[:, 2] - rois[:, 0], min=0.0)
     h = torch.clamp(rois[:, 3] - rois[:, 1], min=0.0)
     size = torch.sqrt(w * h)

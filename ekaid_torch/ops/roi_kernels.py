@@ -21,7 +21,9 @@ to 8, which also fixes which columns the patch holds.
 
 For a CUDA tensor each wrapper launches its instance of
 `ekaid_torch/csrc/roi_align.cu` and counts the launch in its
-`launches`; it never falls back. The kernel computes the geometry
+`launches`; it never falls back. The kernels have no backward: with
+grad mode on, an input that requires grad is refused (`refuse_grad`).
+The kernel computes the geometry
 itself from the raw boxes and a table of the levels (`level_table`),
 so the wrapper runs no torch op but the output's `torch.empty`. It
 takes level maps of f32 or bf16 whose channels are a multiple of 16
@@ -340,6 +342,24 @@ def _launch(fmaps, rois, scales, out_size, sampling_ratio, min_level,
     return _finish(out, args.batched, args.b, args.r_per, out_size)
 
 
+class NoGradKernelError(RuntimeError):
+    """A K2/K3 launch was asked for an input that requires grad."""
+
+
+def refuse_grad(fmaps: Sequence[torch.Tensor], rois: torch.Tensor) -> None:
+    """Raise NoGradKernelError when grad mode is on and a level map or
+    the ROIs require grad. The kernels have no backward, as the
+    reference's Pallas paths have none (inference only): their output
+    would carry no gradient, so training pools through the gather form
+    (`roi_align.multilevel_roi_align`) instead."""
+    if torch.is_grad_enabled() and (
+            rois.requires_grad or any(f.requires_grad for f in fmaps)):
+        raise NoGradKernelError(
+            "roi_align kernels are inference only (no backward): call them "
+            "under torch.no_grad() or on inputs that need no gradient, or "
+            "pool through ops/roi_align.py::multilevel_roi_align to train")
+
+
 def _dispatch(wrapper, fmaps, rois, scales, out_size, sampling_ratio,
               min_level, round_a):
     if rois.device.type == "cpu":
@@ -349,6 +369,7 @@ def _dispatch(wrapper, fmaps, rois, scales, out_size, sampling_ratio,
                      min_level)
     if rois.device.type != "cuda":
         raise ValueError(f"roi_align: no kernel for {rois.device}")
+    refuse_grad(fmaps, rois)
     out = _launch(fmaps, rois, scales, out_size, sampling_ratio, min_level,
                   round_a)
     wrapper.launches += 1

@@ -11,7 +11,10 @@ too), puts rmsprop's eps inside the square root, starts adagrad's
 accumulator at 0.1 with eps 1e-7, and clips by the global norm only
 when that norm reaches the limit. The learning rate follows
 `optax.exponential_decay(staircase=True)` over the update count, one
-transition every `step_size` epochs. Updates are in place, with
+transition every `step_size` epochs, or a schedule given to the
+optimizer (the detector trainer's `warmup_cosine`). A schedule's count
+starts at 0, as optax's does: with a warmup from 0, the first update
+moves nothing. Updates are in place, with
 `torch._foreach_*` ops, so every parameter's version counter moves with
 each step (the decode weight caches key on it).
 
@@ -23,7 +26,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -49,19 +52,47 @@ def exponential_decay(lr: float, transition_steps: int, gamma: float,
     return float(np.float32(lr) * np.power(np.float32(gamma), p))
 
 
+def warmup_cosine(lr: float, warmup: int, total_steps: int
+                  ) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule(0, lr, warmup, total_steps) in
+    its f32 arithmetic: linear from 0 to lr over `warmup` updates, then
+    a cosine to 0 at `total_steps`. The cosine is rounded once from
+    double (XLA's f32 cosine is within an ulp of it)."""
+    if not total_steps - warmup > 0:
+        raise ValueError(f"warmup_cosine needs total_steps > warmup, got "
+                         f"{total_steps} and {warmup}")
+    f32 = np.float32
+    peak, decay = f32(lr), f32(total_steps - warmup)
+
+    def schedule(count: int) -> float:
+        if count < warmup:
+            c = f32(min(max(count, 0), warmup))
+            frac = f32(1) - c / f32(warmup)
+            return float(f32(-peak * frac) + peak)
+        c = min(f32(count - warmup), decay)
+        x = f32(np.pi) * c / decay
+        cosine = f32(0.5) * (f32(1) + f32(np.cos(np.float64(x))))
+        return float(peak * cosine)
+
+    return schedule
+
+
 class Optimizer:
     """One of `KINDS` with optax's update rule, grad clipping by global
-    norm and the step-decay schedule, over every parameter of `model`.
+    norm and the step-decay schedule (or `schedule`: the learning rate of
+    each update count), over every parameter of `model`.
 
     State: `count` (updates applied) and, by kind, mu/nu (adam), trace
     (sgdm, sgdmom), nu (rmsprop), acc (adagrad), one tensor a parameter,
     in `model.named_parameters()` order."""
 
     def __init__(self, optim_cfg, model: nn.Module,
-                 steps_per_epoch: Optional[int] = None):
+                 steps_per_epoch: Optional[int] = None,
+                 schedule: Optional[Callable[[int], float]] = None):
         if optim_cfg.type not in KINDS:
             raise ValueError(f"bad option for optimizer: {optim_cfg.type}")
         self.cfg = optim_cfg
+        self.schedule = schedule
         self.names = [n for n, _ in model.named_parameters()]
         self.params = [p for _, p in model.named_parameters()]
         self.transition = (optim_cfg.step_size * steps_per_epoch
@@ -80,6 +111,8 @@ class Optimizer:
     def lr(self, count: Optional[int] = None) -> float:
         """The learning rate of update `count` (default: the next)."""
         c = self.count if count is None else count
+        if self.schedule is not None:
+            return self.schedule(c)
         return exponential_decay(self.cfg.lr, self.transition,
                                  self.cfg.gamma, c)
 

@@ -52,7 +52,8 @@ def test_port_imports_no_jax_and_no_reference_package(probe):
                  "metrics.coco", "metrics.meteor_resources",
                  "utils.logging", "utils.checkpoint", "utils.orbax_import",
                  "train.test", "serving.server", "serving.webui",
-                 "serving.client"):
+                 "serving.client", "train.train_detector",
+                 "data.detection", "metrics.detection"):
         assert f"ekaid_torch.{name}" in probe["modules"], name
     assert probe["loaded"] == []
 
