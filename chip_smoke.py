@@ -155,7 +155,40 @@ Phases, each fatal on failure:
      step (median of steps 3-6), images trained/s, the forward /
      backward / optimizer split, augmentation host ms a batch, peak
      memory, eval images/s, one step under torch.profiler. K2's
-     launches here add to its `kernels` entry.
+     launches here add to its `kernels` entry;
+ 13. from raw files to answers, through `ekaid_torch.tools.pipeline.main`
+     with each stage timed by `StepTimer` (the flagship detectors at
+     1024^2, the `load_config()` VQA widths at bf16; steps cut): (a)
+     `--stage all --synthetic 16` (detectors 4 steps, VQA 8 iterations):
+     every stage's artifact there, every logged loss finite, one test
+     prediction per test pair, K2 launched twice an extraction batch and
+     once a detector-eval batch, K1 once an eval or test batch; a second
+     `--stage extract` skipped because its file exists, then redone with
+     --force; (b) 2 x RAW_PAIRS grayscale JPGs of assorted sizes and a
+     question CSV over the seven question types, written by the phase,
+     through convert (the shapes pickle holds the sizes written), the
+     detector stage skipped on (a)'s checkpoints, extract (K2 twice a
+     batch), preprocess (self-indexed rows, each feature_idx below the
+     rows written), then train and test with a --cfg YAML that points
+     data.* at this root: losses finite, each eval and test batch's
+     step-0 tokens equal to the plain decode's on fresh weights, one
+     prediction per test question; (c) `viz.ask.main` on (b)'s best
+     snapshot, ASK_SAMPLES samples (the counts sum to it, K1 launched
+     once, for the greedy answer), a multinomial decode of MULTI_ROWS
+     pairs at f32 on the card and on the CPU from the same weights and
+     Gumbel draws (tokens equal up to a near-tie of the CPU's scores,
+     the equal prefix's logprobs within MULTI_LP_GATE; bf16 agreement
+     recorded), `viz.examples` on (b)'s GT JSON; the figures are drawn
+     where matplotlib is installed; (d) a Detectron2-layout R50-FPN
+     state dict at full widths from seeded arrays, converted by
+     `tools.torch_convert --kind detector`, fine-tuned through the
+     pipeline's detector stage (--detector_init, 256^2, 2 steps; losses
+     finite) and read by the extraction runner with frozen_bn,
+     stride_in_1x1 and detectron2 preprocessing (K2 twice, records
+     finite). Where h5py is not installed the feature file goes through
+     a numpy stand-in for the part of h5py's API the port uses
+     (`h5py_module`). K1's and K2's launches here add to their
+     `kernels` entries.
 Prints one `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}, after a `record:` line with every number
 as JSON. Without a CUDA device, or outside the repository, it exits
@@ -239,6 +272,15 @@ DET_LOSS_RTOL = 1e-4
 DET_STEPS = 6                      # the flagship DetectorTrainer
 DET_TRAIN_IMAGES = 16
 DET_CLI_SIZE = 256
+# phase 13: from raw files to answers
+PIPE_SYNTHETIC = 16                # 13a: synthetic images
+PIPE_DET_STEPS = 4
+PIPE_TRAIN_ITERS = 8
+RAW_PAIRS = 80                     # 13b: questions; 2 x RAW_PAIRS JPGs
+ASK_SAMPLES = 32                   # 13c
+MULTI_ROWS = 8                     # the card-vs-CPU multinomial decode
+MULTI_LP_GATE = 1e-4
+CONV_IMAGES = 8                    # 13d
 
 
 def log(msg: str) -> None:
@@ -2742,6 +2784,759 @@ def detector_train_phase(rec: dict, cfg, device: str = "cuda") -> int:
     return k2 + k2_runner
 
 
+# ---------------------------------------------------------------------------
+# phase 13: from raw files to answers
+# ---------------------------------------------------------------------------
+
+class _StandinDataset:
+    """The part of an h5py dataset the port's writer and reader use, on
+    a numpy array (rows grow along axis 0)."""
+
+    # not raw-readable: the feature store reads through this object
+    compression, shuffle, fletcher32, scaleoffset = "standin", False, \
+        False, None
+
+    def __init__(self, array):
+        self.a = array
+
+    shape = property(lambda self: self.a.shape)
+    dtype = property(lambda self: self.a.dtype)
+
+    def resize(self, n, axis=0):
+        import numpy as np
+        if axis:
+            raise ValueError("the stand-in grows along axis 0 only")
+        new = np.zeros((n,) + self.a.shape[1:], self.a.dtype)
+        m = min(n, self.a.shape[0])
+        new[:m] = self.a[:m]
+        self.a = new
+
+    def __getitem__(self, key):
+        return self.a[key]
+
+    def __setitem__(self, key, value):
+        self.a[key] = value
+
+    def __len__(self):
+        return self.a.shape[0]
+
+
+class _StandinFile:
+    """h5py.File's surface for the port's HDF5 writer and feature store,
+    kept as one .npz at `path` (attributes as JSON beside the arrays)."""
+
+    def __init__(self, path, mode="r"):
+        import numpy as np
+        self.path, self.mode = str(path), mode
+        self.sets, self.attrs = {}, {}
+        if mode != "w":
+            with np.load(self.path) as z:
+                self.attrs = json.loads(str(z["__attrs__"]))
+                self.sets = {k: _StandinDataset(z[k]) for k in z.files
+                             if k != "__attrs__"}
+
+    def create_dataset(self, name, shape, maxshape=None, chunks=None,
+                       dtype="float32"):
+        import numpy as np
+        self.sets[name] = _StandinDataset(np.zeros(shape, dtype))
+        return self.sets[name]
+
+    def __contains__(self, name):
+        return name in self.sets
+
+    def __getitem__(self, name):
+        return self.sets[name]
+
+    def keys(self):
+        return self.sets.keys()
+
+    def flush(self):
+        pass
+
+    def close(self):
+        import numpy as np
+        if self.mode != "r":
+            with open(self.path, "wb") as f:
+                np.savez(f, __attrs__=np.array(json.dumps(self.attrs)),
+                         **{k: d.a for k, d in self.sets.items()})
+
+
+def h5py_module():
+    """h5py, or where it is not installed a module with the part of its
+    API the port uses, writing .npz files: the pipeline's feature file
+    then round-trips through the port's own writer and reader. Returns
+    (the module, what it is)."""
+    try:
+        import h5py
+        return h5py, f"h5py {h5py.__version__}"
+    except ImportError:
+        import types
+        mod = types.ModuleType("h5py")
+        mod.File = _StandinFile
+        sys.modules["h5py"] = mod
+        return mod, "numpy stand-in (h5py not installed)"
+
+
+class Patches:
+    """Attributes replaced for a block and put back after it."""
+
+    def __init__(self):
+        self.saved = []
+
+    def set(self, obj, name, value):
+        self.saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in reversed(self.saved):
+            setattr(obj, name, value)
+        return False
+
+
+class PipelineProbe(Patches):
+    """Watches the stage pipeline from outside: each stage entry point
+    timed with `StepTimer` (seconds, and K1's and K2's launches within),
+    the greedy decodes counted (and, with `check_step0`, each held
+    against the plain decode on fresh weights), the detector trainer's
+    eval batches counted and its losses kept, and the test stage's
+    predictions and split size kept. Every train step's losses (VQA and
+    detector) are read back as they come."""
+
+    def __init__(self, check_step0: bool = False):
+        super().__init__()
+        import torch
+        from ekaid_torch.data import images, preprocess
+        from ekaid_torch.extract import runner
+        from ekaid_torch.models import greedy_decode as gd
+        from ekaid_torch.models.ekaid import EkaidModel
+        from ekaid_torch.ops import roi_kernels as rk
+        from ekaid_torch.train import test as tst
+        from ekaid_torch.train import train as trn
+        from ekaid_torch.train import train_detector as td
+        self.k1, self.k2 = gd.greedy_decode, rk.multilevel_roi_align_canvas
+        self.stages, self.decodes, self.det_evals = {}, 0, 0
+        self.det_losses, self.vqa_losses = [], []
+        self.tests, self.printed = [], []
+        for mod, name, stage in ((images, "convert_tree", "convert"),
+                                 (td, "main", "detector"),
+                                 (runner, "main", "extract"),
+                                 (preprocess, "transform_questions",
+                                  "preprocess"),
+                                 (trn, "main", "train"),
+                                 (tst, "main", "test")):
+            self.set(mod, name, self._timed(stage, getattr(mod, name)))
+        decode, detect = EkaidModel.decode, td.DetectorTrainer.detect
+        step, run_test = td.DetectorTrainer.train_step, tst.run_test
+        vqa_step = trn.train_step
+
+        def counted_decode(model, batch, sample_max=True, **kw):
+            out = decode(model, batch, sample_max=sample_max, **kw)
+            if sample_max:
+                self.decodes += 1
+                if check_step0 and not torch.equal(
+                        out["seq"][:, 0], plain_step0(model, batch)):
+                    raise AssertionError(
+                        f"decode {self.decodes}: K1's step-0 tokens differ "
+                        "from the plain decode on fresh weights")
+            return out
+
+        def counted_detect(trainer, images):
+            self.det_evals += 1
+            return detect(trainer, images)
+
+        def logged_step(trainer, *a, **kw):
+            out = step(trainer, *a, **kw)
+            self.det_losses.append({n: float(v) for n, v in out.items()})
+            return out
+
+        def logged_vqa_step(*a, **kw):
+            out = vqa_step(*a, **kw)
+            self.vqa_losses.append({n: float(v) for n, v in out.items()})
+            return out
+
+        def kept_test(trainer, *a, **kw):
+            scores, preds = run_test(trainer, *a, **kw)
+            self.tests.append({"pairs": len(trainer.eval_ds),
+                               "predictions": len(preds)})
+            return scores, preds
+
+        self.set(EkaidModel, "decode", counted_decode)
+        self.set(td.DetectorTrainer, "detect", counted_detect)
+        self.set(td.DetectorTrainer, "train_step", logged_step)
+        self.set(trn, "train_step", logged_vqa_step)
+        self.set(tst, "run_test", kept_test)
+
+    def _timed(self, stage, fn):
+        from ekaid_torch.utils.observability import StepTimer
+
+        def run(*a, **kw):
+            k1, k2 = self.k1.launches, self.k2.launches
+            timer = StepTimer()
+            with timer:
+                out = fn(*a, **kw)
+            s = self.stages.setdefault(stage, {"s": 0.0, "calls": 0,
+                                               "k1": 0, "k2": 0})
+            s["s"] += timer.last
+            s["calls"] += 1
+            s["k1"] += self.k1.launches - k1
+            s["k2"] += self.k2.launches - k2
+            return out
+        return run
+
+    def run(self, argv):
+        """`tools.pipeline.main(argv)`, its output echoed and kept."""
+        import contextlib
+        import io
+        from ekaid_torch.tools import pipeline
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                pipeline.main(argv)
+        finally:
+            text = buf.getvalue()
+            self.printed.append(text)
+            for line in text.splitlines():
+                if line.startswith("[") or "took" in line:
+                    log(f"      | {line[:150]}")
+        return text
+
+
+def _finite(values) -> bool:
+    return all(math.isfinite(float(v)) for v in values)
+
+
+def write_raw_inputs(root: Path, n_pairs: int, seed: int = SEED):
+    """2 x n_pairs grayscale JPGs of assorted sizes (not square, not
+    1024^2), named so that sorted order is write order (image 2i is pair
+    i's main image, 2i + 1 its reference), and a question CSV of n_pairs
+    rows over the seven question types. Returns ({stem: (h, w)}, csv)."""
+    import csv as csvmod
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    jpgs = root / "jpgs"
+    jpgs.mkdir(parents=True)
+    sizes = {}
+    for i in range(2 * n_pairs):
+        h = int(rng.integers(600, 1400))
+        w = int(rng.integers(500, 1300))
+        if w == h or 1024 in (h, w):
+            w += 7
+        sizes[f"cxr{i:04d}"] = (h, w)
+    coarse = rng.integers(0, 256, (2 * n_pairs, 24, 20), dtype=np.uint8)
+    noise = rng.integers(0, 24, (2 * n_pairs, 64, 64), dtype=np.uint8)
+
+    def write(i_stem):
+        i, stem = i_stem
+        h, w = sizes[stem]
+        img = Image.fromarray(coarse[i]).resize((w, h), Image.BILINEAR)
+        px = np.asarray(img, np.uint16) + np.tile(
+            noise[i], (h // 64 + 1, w // 64 + 1))[:h, :w]
+        Image.fromarray(np.clip(px, 0, 255).astype(np.uint8)).save(
+            jpgs / f"{stem}.jpg", quality=90)
+
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(write, enumerate(sizes)))
+    types = ("abnormality", "presence", "view", "location", "level",
+             "type", "difference")
+    findings = ("effusion", "edema", "atelectasis", "pneumonia",
+                "cardiomegaly", "pneumothorax", "opacity")
+    places = ("left lung", "right lung", "both lungs", "the heart")
+    csv_path = root / "questions.csv"
+    with open(csv_path, "w", newline="") as f:
+        w = csvmod.writer(f)
+        w.writerow(["question", "answer", "question_type", "study_id",
+                    "ref_id"])
+        for i in range(n_pairs):
+            t = types[i % len(types)]
+            find = findings[int(rng.integers(len(findings)))]
+            place = places[int(rng.integers(len(places)))]
+            q, a = {
+                "abnormality": ("what abnormalities are seen in this image?",
+                                f"{find}, {findings[i % 7]}."),
+                "presence": (f"is there evidence of {find} in this image?",
+                             "yes" if i % 3 else "no"),
+                "view": ("which view is this image taken?",
+                         "PA view" if i % 2 else "AP view"),
+                "location": (f"where in the image is the {find} located?",
+                             f"{place}."),
+                "level": (f"what level is the {find}?",
+                          ("mild", "moderate", "severe")[i % 3]),
+                "type": (f"what type is the {find}?", "interstitial"),
+                "difference": ("what has changed compared to the reference "
+                               "image?", f"the main image has additional "
+                               f"findings of {find} than the reference "
+                               "image."),
+            }[t]
+            w.writerow([q, a, t, 50000 + i, 60000 + i])
+    return sizes, csv_path
+
+
+def multinomial_agree(card_out, cpu_out, cpu_scores, tol: float,
+                      what: str) -> dict:
+    """The multinomial decode on the card against the CPU's on the same
+    weights and Gumbel draws: each row's tokens equal to the end, or up
+    to the first step where the CPU's two best scores (draw + logp /
+    temp, with the step's bans) are closer than `tol`. Returns the rows
+    that differ and the logprob error over the rows' equal prefix."""
+    import torch
+    a, b = card_out["seq"].cpu(), cpu_out["seq"].cpu()
+    d = a != b
+    prefix = ~(d.cumsum(1) > 0)
+    lp_err = ((card_out["logprobs"].cpu() - cpu_out["logprobs"].cpu())
+              .abs() * prefix).max().item()
+    r = {"rows_differ": int(d.any(1).sum()), "prefix_lp_err": lp_err,
+         "rows": []}
+    for row in d.any(1).nonzero()[:, 0].tolist():
+        first = int(d[row].nonzero()[0])
+        gaps = []
+        for t in range(first + 1):
+            top = torch.topk(cpu_scores[t][row], 2).values
+            gaps.append(float(top[0] - top[1]))
+        ties = [t for t, g in enumerate(gaps) if g < tol]
+        r["rows"].append({"row": row, "step": first,
+                          "near_tie_step": ties[0] if ties else None})
+        if not ties:
+            raise AssertionError(
+                f"{what}: row {row} differs at step {first} with no "
+                f"near-tie (< {tol:.3g}) up to it; the CPU's top-2 score "
+                f"gap there is {gaps[-1]:.3g}")
+    return r
+
+
+def d2_state(seed: int, num_classes: int) -> dict:
+    """A Detectron2 GeneralizedRCNN R50-FPN state dict at full widths
+    from seeded arrays (He-scaled convs, FrozenBatchNorm2d buffers), with
+    the zoo's pixel_mean/pixel_std."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(name, cout, cin, k, bias=False):
+        sd[f"{name}.weight"] = (rng.standard_normal((cout, cin, k, k))
+                                * math.sqrt(2.0 / (cin * k * k))
+                                ).astype(np.float32)
+        if bias:
+            sd[f"{name}.bias"] = np.zeros(cout, np.float32)
+
+    def bn(name, c):
+        sd[f"{name}.norm.weight"] = rng.uniform(0.5, 1.0, c).astype(
+            np.float32)
+        sd[f"{name}.norm.bias"] = (rng.standard_normal(c) * 0.1).astype(
+            np.float32)
+        sd[f"{name}.norm.running_mean"] = (rng.standard_normal(c) * 0.1
+                                           ).astype(np.float32)
+        sd[f"{name}.norm.running_var"] = rng.uniform(0.5, 1.5, c).astype(
+            np.float32)
+
+    bu = "backbone.bottom_up"
+    conv(f"{bu}.stem.conv1", 64, 3, 7)
+    bn(f"{bu}.stem.conv1", 64)
+    cin = 64
+    for s, (depth, cout) in enumerate(zip((3, 4, 6, 3),
+                                          (256, 512, 1024, 2048))):
+        width = cout // 4
+        for b in range(depth):
+            p = f"{bu}.res{s + 2}.{b}"
+            c_in = cin if b == 0 else cout
+            for i, (co, ci, k) in enumerate(((width, c_in, 1),
+                                             (width, width, 3),
+                                             (cout, width, 1)), 1):
+                conv(f"{p}.conv{i}", co, ci, k)
+                bn(f"{p}.conv{i}", co)
+            if b == 0:
+                conv(f"{p}.shortcut", cout, c_in, 1)
+                bn(f"{p}.shortcut", cout)
+        cin = cout
+    for lvl, c in zip((2, 3, 4, 5), (256, 512, 1024, 2048)):
+        conv(f"backbone.fpn_lateral{lvl}", 256, c, 1, bias=True)
+        conv(f"backbone.fpn_output{lvl}", 256, 256, 3, bias=True)
+    rp = "proposal_generator.rpn_head"
+    conv(f"{rp}.conv", 256, 256, 3, bias=True)
+    conv(f"{rp}.objectness_logits", 3, 256, 1, bias=True)
+    conv(f"{rp}.anchor_deltas", 12, 256, 1, bias=True)
+    for name, (o, i) in (("roi_heads.box_head.fc1", (1024, 256 * 49)),
+                         ("roi_heads.box_head.fc2", (1024, 1024)),
+                         ("roi_heads.box_predictor.cls_score",
+                          (num_classes + 1, 1024)),
+                         ("roi_heads.box_predictor.bbox_pred",
+                          (num_classes * 4, 1024))):
+        sd[f"{name}.weight"] = (rng.standard_normal((o, i))
+                                * math.sqrt(1.0 / i)).astype(np.float32)
+        sd[f"{name}.bias"] = np.zeros(o, np.float32)
+    sd["pixel_mean"] = np.array([103.53, 116.28, 123.675],
+                                np.float32).reshape(3, 1, 1)
+    sd["pixel_std"] = np.ones((3, 1, 1), np.float32)
+    return sd
+
+
+def raw_files_phase(rec: dict, cfg, device: str = "cuda",
+                    image_size: int = 1024, det_size: int = DET_CLI_SIZE,
+                    raw_pairs: int = RAW_PAIRS) -> tuple:
+    """Phase 13, from raw files to answers: (a) the stage pipeline on
+    synthetic data, (b) on JPGs and a question CSV the phase writes,
+    (c) ask and draw, (d) a converted Detectron2 detector. `cfg` is the
+    VQA and detector config of the runs with --cfg (the synthetic runs
+    read the entry points' defaults). Returns K1's and K2's launches."""
+    import pickle
+    import shutil
+    import numpy as np
+    import torch
+    import yaml
+    from ekaid_torch.models import greedy_decode as gd
+    from ekaid_torch.models.decoder import gumbel_draws
+    from ekaid_torch.models.ekaid import EkaidModel
+    from ekaid_torch.tools import torch_convert
+    from ekaid_torch.utils.dtypes import BF16, F32
+    from ekaid_torch.viz import ask, examples
+    t_phase = time.perf_counter()
+    h5py, rec["p13_h5"] = h5py_module()
+    try:
+        import matplotlib  # noqa: F401
+        draw = True
+    except ImportError:
+        draw = False
+    rec["p13_figures"] = ("drawn" if draw else
+                          "not drawn: matplotlib is not installed here")
+    work = ROOT / "build" / "phase13"
+    shutil.rmtree(work, ignore_errors=True)
+    k1_total = k2_total = 0
+    dev = ["--device", device]
+
+    # ---- 13a. the synthetic pipeline --------------------------------------
+    root_a = work / "a"
+    argv_a = ["--data_root", str(root_a), "--synthetic",
+              str(PIPE_SYNTHETIC), "--image_size", str(image_size)] + dev
+    with PipelineProbe() as pa:
+        pa.run(argv_a + ["--stage", "all", "--detector_steps",
+                         str(PIPE_DET_STEPS), "--train_iters",
+                         str(PIPE_TRAIN_ITERS)])
+        st = pa.stages
+        for f in ("ckpt_anatomy.pt", "ckpt_disease.pt",
+                  "cmb_bbox_di_feats.hdf5", "run/metrics.jsonl",
+                  "run/snapshots/best.pt", "run/test_results.json"):
+            if not (root_a / f).exists():
+                raise AssertionError(f"13a: no {f}")
+        vqa_losses = [d["total_loss"] for d in pa.vqa_losses]
+        det_losses = [v for d in pa.det_losses for v in d.values()]
+        if len(vqa_losses) != PIPE_TRAIN_ITERS or not _finite(
+                [v for d in pa.vqa_losses for v in d.values()]):
+            raise AssertionError(f"13a: VQA losses {pa.vqa_losses}")
+        if len(pa.det_losses) != 2 * PIPE_DET_STEPS or not _finite(
+                det_losses):
+            raise AssertionError(f"13a: detector losses {pa.det_losses}")
+        f = h5py.File(str(root_a / "cmb_bbox_di_feats.hdf5"), "r")
+        n_rows = f["image_features"].shape[0]
+        f.close()
+        batches = -(-n_rows // cfg.detector.extract_batch_size)
+        results = json.loads((root_a / "run" / "test_results.json")
+                             .read_text())
+        test = pa.tests[0]
+        if n_rows != PIPE_SYNTHETIC:
+            raise AssertionError(f"13a: {n_rows} feature rows")
+        if st["extract"]["k2"] != 2 * batches:
+            raise AssertionError(f"13a: K2 launched {st['extract']['k2']} "
+                                 f"times in extraction for {batches} "
+                                 "batches")
+        if st["detector"]["k2"] != pa.det_evals:
+            raise AssertionError(f"13a: K2 launched {st['detector']['k2']}"
+                                 f" times for {pa.det_evals} detector-eval "
+                                 "batches")
+        k1 = st["train"]["k1"] + st["test"]["k1"]
+        if k1 != pa.decodes:
+            raise AssertionError(f"13a: K1 launched {k1} times for "
+                                 f"{pa.decodes} eval and test batches")
+        if not (len(results) == test["pairs"] == test["predictions"]):
+            raise AssertionError(f"13a: {len(results)} predictions for "
+                                 f"{test['pairs']} test pairs")
+        k1_total += k1
+        k2_total += st["detector"]["k2"] + st["extract"]["k2"]
+        rec["p13a_stage_s"] = {k: v["s"] for k, v in st.items()}
+        rec["p13a_launches"] = {k: {"k1": v["k1"], "k2": v["k2"]}
+                                for k, v in st.items()}
+        log(f"[13a] pipeline --stage all --synthetic {PIPE_SYNTHETIC} at "
+            f"{image_size}^2: stages (s) " + ", ".join(
+                f"{k} {v['s']:.1f}" for k, v in st.items())
+            + f"; detector losses finite over {len(pa.det_losses)} steps, "
+            f"VQA losses {[round(x, 3) for x in vqa_losses]}; K2 "
+            f"{st['detector']['k2']} (= {pa.det_evals} detector-eval "
+            f"batches) + {st['extract']['k2']} (= 2 x {batches} extraction "
+            f"batches); K1 {k1} (= {pa.decodes} eval and test batches); "
+            f"{len(results)} test predictions for {test['pairs']} pairs")
+        k2 = pa.k2.launches
+        text = pa.run(argv_a + ["--stage", "extract"])
+        if "[extract] skipped (exists)" not in text or pa.k2.launches != k2:
+            raise AssertionError("13a: a second extract stage ran")
+        mtime = (root_a / "cmb_bbox_di_feats.hdf5").stat().st_mtime_ns
+        pa.run(argv_a + ["--stage", "extract", "--force"])
+        if pa.k2.launches - k2 != 2 * batches or (
+                root_a / "cmb_bbox_di_feats.hdf5").stat().st_mtime_ns \
+                == mtime:
+            raise AssertionError("13a: --force did not redo extraction")
+        k2_total += 2 * batches
+    log(f"      a second --stage extract: skipped (exists); with --force: "
+        f"redone, K2 {2 * batches} more")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- 13b. raw files ----------------------------------------------------
+    root_b = work / "b"
+    t0 = time.perf_counter()
+    sizes, csv_path = write_raw_inputs(work / "raw", raw_pairs)
+    rec["p13b_write_inputs_s"] = time.perf_counter() - t0
+    n_img = len(sizes)
+    argv_b = ["--data_root", str(root_b), "--image_size", str(image_size),
+              "--image_dir", str(work / "raw" / "jpgs"),
+              "--question_csv", str(csv_path)] + dev
+    data = {"vocab_json": str(root_b / "vocab_mimic_VQA.json"),
+            "splits_json": str(root_b / "splits_mimic_VQA.json"),
+            "feature_h5": str(root_b / "cmb_bbox_di_feats.hdf5"),
+            "gt_captions": str(root_b / "mimic_gt_captions_%s.json")}
+    bcfg = cfg.replace(data=cfg.data.replace(**data))
+    yaml_path = work / "raw.yaml"
+    yaml_path.write_text(yaml.safe_dump(json.loads(json.dumps(
+        bcfg.to_dict()))))
+    with PipelineProbe(check_step0=True) as pb:
+        pb.run(argv_b + ["--stage", "convert"])
+        with open(root_b / "pngs" / "mimic_shape_full.pkl", "rb") as f:
+            shapes = pickle.load(f)
+        got = {s["image"]: tuple(s["shape"]) for s in shapes}
+        if got != sizes:
+            raise AssertionError("13b: mimic_shape_full.pkl holds other "
+                                 "sizes than the phase wrote")
+        (root_b / "ckpt_anatomy.pt").write_bytes(
+            (root_a / "ckpt_anatomy.pt").read_bytes())
+        (root_b / "ckpt_disease.pt").write_bytes(
+            (root_a / "ckpt_disease.pt").read_bytes())
+        if "[detector] skipped (exists)" not in pb.run(
+                argv_b + ["--stage", "detector"]):
+            raise AssertionError("13b: the detector stage ran")
+        for stage in ("extract", "preprocess"):
+            pb.run(argv_b + ["--stage", stage])
+        f = h5py.File(data["feature_h5"], "r")
+        n_rows = f["image_features"].shape[0]
+        feats_ok = bool(np.isfinite(f["image_features"][:]).all())
+        f.close()
+        fidx = np.load(root_b / "vqa_dataset.npz")["feature_idx"]
+        if n_rows != n_img or not feats_ok:
+            raise AssertionError(f"13b: {n_rows} feature rows for {n_img} "
+                                 f"images (finite: {feats_ok})")
+        if int(fidx.max()) >= n_rows or len(fidx) != raw_pairs:
+            raise AssertionError(f"13b: feature_idx up to {fidx.max()} "
+                                 f"over {n_rows} rows")
+        for stage in ("train", "test"):
+            pb.run(argv_b + ["--stage", stage, "--train_iters",
+                             str(PIPE_TRAIN_ITERS), "--cfg", str(yaml_path)])
+        st = pb.stages
+        batches = -(-n_img // cfg.detector.extract_batch_size)
+        if st["extract"]["k2"] != 2 * batches:
+            raise AssertionError(f"13b: K2 launched {st['extract']['k2']} "
+                                 f"times for {batches} batches")
+        vqa_losses = [d["total_loss"] for d in pb.vqa_losses]
+        if len(vqa_losses) != PIPE_TRAIN_ITERS or not _finite(
+                [v for d in pb.vqa_losses for v in d.values()]):
+            raise AssertionError(f"13b: VQA losses {pb.vqa_losses}")
+        k1 = st["train"]["k1"] + st["test"]["k1"]
+        if k1 != pb.decodes:
+            raise AssertionError(f"13b: K1 launched {k1} times for "
+                                 f"{pb.decodes} eval and test batches")
+        results = json.loads((root_b / "run" / "test_results.json")
+                             .read_text())
+        split = json.loads(Path(data["splits_json"]).read_text())["test"]
+        if sorted(int(r["image_id"]) for r in results) != sorted(split):
+            raise AssertionError(f"13b: predictions for "
+                                 f"{[r['image_id'] for r in results]}, test "
+                                 f"questions {split}")
+        k1_total += k1
+        k2_total += st["extract"]["k2"]
+        rec["p13b_stage_s"] = {k: v["s"] for k, v in st.items()}
+        rec["p13b_extract_images_per_s"] = n_img / st["extract"]["s"]
+        rec["p13b_launches"] = {k: {"k1": v["k1"], "k2": v["k2"]}
+                                for k, v in st.items()}
+    log(f"[13b] raw files: {n_img} JPGs ({rec['p13b_write_inputs_s']:.1f} s "
+        f"to write) and {raw_pairs} questions -> stages (s) " + ", ".join(
+            f"{k} {v:.1f}" for k, v in rec["p13b_stage_s"].items())
+        + f"; VQA losses {[round(x, 3) for x in vqa_losses]}; extraction "
+        f"{rec['p13b_extract_images_per_s']:.1f} images/s "
+        f"(the stage, PNG decode and model build included); shapes pickle "
+        f"equal to the sizes written; {n_rows} feature rows "
+        f"({rec['p13_h5']}), feature_idx < {n_rows}; K2 "
+        f"{st['extract']['k2']} = 2 x {batches}; K1 {k1} = {pb.decodes} "
+        f"decodes, each batch's step-0 tokens equal the plain decode's; "
+        f"{len(results)} predictions for the {len(split)} test questions")
+
+    # ---- 13c. ask and draw ---------------------------------------------------
+    snaps = root_b / "run" / "snapshots"
+    png = work / "ask.png"
+    question = "what has changed compared to the reference image?"
+    k1 = gd.greedy_decode.launches
+    with Patches() as pc:
+        kept, ask_q = {}, ask.ask_question
+
+        def timed_ask(trainer, *a, **kw):
+            kept["trainer"] = trainer
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = ask_q(trainer, *a, **kw)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            rec["p13c_ask_ms"] = (time.perf_counter() - t) * 1e3
+            return out
+
+        pc.set(ask, "ask_question", timed_ask)
+        res = ask.main(["--cfg", str(yaml_path), "--checkpoint_dir",
+                        str(snaps), "--checkpoint", "best", "--question",
+                        question, "--n_samples", str(ASK_SAMPLES)] + dev
+                       + (["--out", str(png)] if draw else []))
+    k1 = gd.greedy_decode.launches - k1
+    if sum(res["counts"].values()) != ASK_SAMPLES:
+        raise AssertionError(f"13c: answer counts {res['counts']}")
+    if device == "cuda" and k1 != 1:
+        raise AssertionError(f"13c: K1 launched {k1} times for one greedy "
+                             "answer")
+    if draw and not png.stat().st_size:
+        raise AssertionError("13c: no figure")
+    k1_total += k1
+    rec["p13c_answers"] = {"distinct": len(res["counts"]),
+                           "greedy": res["greedy"]}
+    tr = kept["trainer"]
+    sd = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+    eb = tr.eval_ds.sample_batch(np.arange(min(MULTI_ROWS,
+                                               len(tr.eval_ds))))
+    ntoken, sp = len(tr.vocab.word_to_idx), tr.cfg.speaker
+    T, V = sp.seq_length, sp.vocab_size
+    g = gumbel_draws((T, len(eb["question"]), V),
+                     torch.Generator().manual_seed(SEED))
+    outs = {}
+    for policy, tag in ((F32, "f32"), (BF16, "bf16")):
+        for d in (device, "cpu"):
+            m = EkaidModel(tr.cfg, ntoken, policy=policy, device=d, seed=None)
+            m.load_state_dict(sd)
+            scores = []
+            if d == "cpu" and tag == "f32":
+                out_lp = m.speaker._out_logprobs
+
+                def kept_lp(h, dpos, mask=None, _f=out_lp):
+                    lp = _f(h, dpos, mask)
+                    t = len(scores)
+                    s = g[t].double() + lp[0].double() / sp.temperature
+                    if t == 0:
+                        s[:, 0] = -math.inf
+                    scores.append(s)
+                    return lp
+                m.speaker._out_logprobs = kept_lp
+            if d == device:
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                t = time.perf_counter()
+            outs[tag, d] = m.decode(eb, sample_max=False, gumbel=g.to(d))
+            if d == device:
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                rec[f"p13c_multinomial_{tag}_ms"] = (time.perf_counter()
+                                                     - t) * 1e3
+            if scores:
+                outs["scores"] = scores
+            del m
+    tol = rec.get("near_tie_tol", NEAR_TIE_FLOOR)    # phase 3 sets it
+    r = multinomial_agree(outs["f32", device], outs["f32", "cpu"],
+                          outs["scores"], tol, "13c multinomial f32")
+    if r["prefix_lp_err"] > MULTI_LP_GATE:
+        raise AssertionError(f"13c: multinomial logprobs of the equal "
+                             f"prefix {r['prefix_lp_err']} > "
+                             f"{MULTI_LP_GATE}")
+    rec["p13c_multinomial_f32"] = r
+    a16, b16 = outs["bf16", device]["seq"].cpu(), outs["bf16", "cpu"]["seq"]
+    rec["p13c_multinomial_bf16_token_share"] = (a16 == b16).float().mean(
+        ).item()
+    gt_test = data["gt_captions"] % "test"
+    kind = json.loads(Path(gt_test).read_text())["annotations"][0][
+        "question_type"]
+    ex = examples.find_examples(gt_test, question_type=kind)
+    examples.main(["--gt_json", gt_test, "--question_type", kind])
+    if not ex or any(r["question_type"] != kind for r in ex):
+        raise AssertionError(f"13c: examples of type {kind!r}: {ex}")
+    if draw:
+        from PIL import Image
+        fi = np.load(root_b / "vqa_dataset.npz")["feature_idx"]
+        order = sorted(sizes)
+
+        def lookup(i):
+            a, b = fi[int(i)]
+            return tuple(np.asarray(Image.open(
+                root_b / "pngs" / f"{order[j]}.png")) for j in (a, b))
+
+        examples.render_sheet(ex, lookup, save=str(work / "sheet.png"))
+        if not (work / "sheet.png").stat().st_size:
+            raise AssertionError("13c: no example sheet")
+    log(f"[13c] viz.ask on the best snapshot: {ASK_SAMPLES} samples, "
+        f"{len(res['counts'])} distinct answers, greedy "
+        f"{res['greedy'][:50]!r}, K1 launched {k1} time(s), "
+        f"ask {rec['p13c_ask_ms']:.1f} ms; figure and sheet "
+        f"{rec['p13_figures']}; multinomial decode of {len(eb['question'])} "
+        f"pairs, card vs CPU on the same draws: f32 rows differing "
+        f"{r['rows_differ']} (each after a near-tie), equal-prefix logprob "
+        f"error {r['prefix_lp_err']:.3g} (gate {MULTI_LP_GATE}), "
+        f"{rec['p13c_multinomial_f32_ms']:.1f} ms; bf16 token share "
+        f"{rec['p13c_multinomial_bf16_token_share']:.4f} (recorded); "
+        f"viz.examples found {len(ex)} {kind!r} questions")
+
+    # ---- 13d. a converted detector -------------------------------------------
+    k = cfg.detector.num_anatomy_classes
+    sd = {n: torch.from_numpy(v) for n, v in d2_state(SEED, k).items()}
+    pth, pt = work / "model_final.pth", work / "d2_converted.pt"
+    torch.save({"model": sd}, pth)
+    del sd
+    t0 = time.perf_counter()
+    torch_convert.main([str(pth), str(pt), "--kind", "detector"])
+    rec["p13d_convert_s"] = time.perf_counter() - t0
+    root_d = work / "d"
+    with PipelineProbe() as pd:
+        pd.run(["--data_root", str(root_d), "--stage", "detector",
+                "--synthetic", str(CONV_IMAGES), "--detector_steps", "2",
+                "--image_size", str(det_size), "--detector_init", str(pt)]
+               + dev)
+        losses = [v for d in pd.det_losses for v in d.values()]
+        if len(pd.det_losses) != 4 or not _finite(losses):
+            raise AssertionError(f"13d: detector losses {pd.det_losses}")
+        if pd.stages["detector"]["k2"] != pd.det_evals:
+            raise AssertionError("13d: K2 launches != detector-eval batches")
+        k2 = pd.k2.launches
+        out = work / "d2_feats.hdf5"
+        from ekaid_torch.extract import runner
+        runner.main(["--ana_ckpt", str(pt), "--norm", "frozen_bn",
+                     "--stride_in_1x1", "--preprocess", "detectron2",
+                     "--synthetic", str(CONV_IMAGES), "--image_size",
+                     str(det_size), "--out", str(out)] + dev)
+        k2 = pd.k2.launches - k2
+        f = h5py.File(str(out), "r")
+        feats = np.asarray(f["image_features"][:])
+        f.close()
+        if k2 != 2 or feats.shape[0] != CONV_IMAGES or not np.isfinite(
+                feats).all():
+            raise AssertionError(f"13d: K2 {k2}, records {feats.shape}, "
+                                 f"finite {np.isfinite(feats).all()}")
+        k2_total += pd.stages["detector"]["k2"] + k2
+        rec["p13d_stage_s"] = {k: v["s"] for k, v in pd.stages.items()}
+    log(f"[13d] a Detectron2 R50-FPN state dict (full widths) converted in "
+        f"{rec['p13d_convert_s']:.1f} s; --detector_init at {det_size}^2: "
+        f"losses finite over {len(pd.det_losses)} steps; the runner on the "
+        f"converted .pt (frozen_bn, stride_in_1x1, detectron2 "
+        f"preprocessing) over {CONV_IMAGES} images: K2 {k2} (one batch, "
+        f"two detectors), records finite")
+    shutil.rmtree(work, ignore_errors=True)
+    for d in ("ekaid_test", "ekaid_ask"):
+        shutil.rmtree(ROOT / "build" / d, ignore_errors=True)
+    rec["p13_s"] = time.perf_counter() - t_phase
+    log(f"     phase 13 took {rec['p13_s']:.1f} s")
+    return k1_total, k2_total
+
+
 def main() -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -2950,6 +3745,13 @@ def main() -> dict:
 
     # ---- 12. the detector's training path, whose evals run K2 ------------
     k2_entry["launches"] += detector_train_phase(rec, cfg)
+
+    # ---- 13. from raw files to answers: K2 in the detector evals and
+    # extraction, K1 in the VQA evals, the test stage and the ask tool ----
+    torch.cuda.empty_cache()
+    k1, k2 = raw_files_phase(rec, cfg)
+    kernels_line[0]["launches"] += k1
+    k2_entry["launches"] += k2
     kline = {"kernels": kernels_line}
     log("record: " + json.dumps(rec))
     print(json.dumps(kline))

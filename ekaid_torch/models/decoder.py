@@ -11,15 +11,17 @@ Two modes:
     predicts seq[:, i + 1], with scheduled sampling, one dropout mask a
     step, the `train_hoist` input products and the `remat` choices. It
     is plain torch under autograd, as the reference's scan is XLA.
-  * `sample`, greedy free-running decode: primes with `bos_token` (2, as
-    the reference model does), bans NULL at the first step, optionally
-    bans repeating the previous token, and stops when every row has
-    emitted 0. The loop runs in `models/greedy_decode.py`: the CUDA
-    kernel on the card, its plain version on the CPU.
+  * `sample`, free-running decode: primes with `bos_token` (2, as the
+    reference model does), bans NULL at the first step, optionally bans
+    repeating the previous token, and stops when every row has emitted
+    0. Greedy: the loop runs in `models/greedy_decode.py`, the CUDA
+    kernel on the card and its plain version on the CPU. Multinomial
+    (`sample_max=False`): plain torch on either device, one
+    `DynamicCore` step a time step, as the reference runs it as XLA and
+    never in its kernel.
   * `sample_beam`, diverse-group beam search: plain torch on either
     device (the reference runs it as XLA, with no kernel of its own),
     one `DynamicCore` step a group and time step.
-Multinomial sampling is not ported yet.
 """
 
 from __future__ import annotations
@@ -264,12 +266,81 @@ class DynamicSpeaker(nn.Module):
             self._weights_key = key
         return self._weights
 
-    def sample(self, feat_bef, feat_aft, feat_diff) -> Dict[str, torch.Tensor]:
-        """Greedy free-running decode: seq [B, T] int32, logprobs [B, T]
-        and module_weights [B, T, 3] f32 (rows zeroed past EOS)."""
+    def sample(self, feat_bef, feat_aft, feat_diff, sample_max: bool = True,
+               temperature: Optional[float] = None,
+               gumbel: Optional[torch.Tensor] = None,
+               gen: Optional[torch.Generator] = None,
+               early_exit: bool = True) -> Dict[str, torch.Tensor]:
+        """Free-running decode: seq [B, T] int32 (0 from each row's end
+        on), logprobs [B, T] and module_weights [B, T, 3] f32 (rows
+        zeroed where seq is 0).
+
+        sample_max: greedy, through `greedy_decode` (K1 on a CUDA
+        tensor; it always stops once every row has ended, and early_exit
+        does not apply). Otherwise multinomial, in plain torch on either
+        device: at step t the token is argmax(gumbel[t] + logp / temp),
+        a categorical draw from the tempered log-probs (Gumbel-max, as
+        the reference's `jax.random.categorical` draws), with logp after
+        the NULL ban at step 0 and the decoding constraint; the logprob
+        kept is the drawn token's un-tempered logp. temperature defaults
+        to cfg.temperature. gumbel [T, B, V] f32: the draws (the tests
+        pass the reference's); else they come from `gen`, a
+        torch.Generator on the model's device. early_exit stops the loop
+        once every row has emitted 0: seq and module_weights are those
+        of the full loop, and logprobs differ only at the steps after
+        the last row ended (0 there; the full loop keeps the later
+        draws' logprobs, as the reference's scan does)."""
+        if sample_max:
+            fused, feats = self._fused(feat_bef, feat_diff, feat_aft)
+            return greedy_decode(self.decode_weights(), self.cfg,
+                                 self.policy, fused, feats)
+        return self._sample_multinomial(feat_bef, feat_aft, feat_diff,
+                                        temperature, gumbel, gen, early_exit)
+
+    @torch.no_grad()
+    def _sample_multinomial(self, feat_bef, feat_aft, feat_diff,
+                            temperature, gumbel, gen, early_exit):
+        c, p = self.cfg, self.policy
+        B, T, V = feat_bef.shape[0], c.seq_length, c.vocab_size
+        dev = feat_bef.device
+        temp = temperature if temperature is not None else c.temperature
+        if gumbel is None:
+            if gen is None:
+                raise ValueError("multinomial decode needs its draws: "
+                                 "pass gumbel or a torch.Generator gen")
+            gumbel = gumbel_draws((T, B, V), gen)
+        if tuple(gumbel.shape) != (T, B, V):
+            raise ValueError(f"gumbel draws {tuple(gumbel.shape)}, want "
+                             f"{(T, B, V)}")
         fused, feats = self._fused(feat_bef, feat_diff, feat_aft)
-        return greedy_decode(self.decode_weights(), self.cfg, self.policy,
-                             fused, feats)
+        z = torch.zeros(B, c.rnn_size, dtype=p.compute_dtype, device=dev)
+        state = (z, z, z, z)
+        it = torch.full((B,), c.bos_token, dtype=torch.long, device=dev)
+        unfinished = torch.ones(B, dtype=torch.bool, device=dev)
+        vocab = torch.arange(V, device=dev)
+        seq = torch.zeros(B, T, dtype=torch.int32, device=dev)
+        lps = torch.zeros(B, T, dtype=torch.float32, device=dev)
+        mws = torch.zeros(B, T, 3, dtype=torch.float32, device=dev)
+        for t in range(T):
+            if early_exit and not bool(unfinished.any()):
+                break
+            h_lang, state, dpos, mw = self.core(self._embed_word(it), fused,
+                                                feats, state)
+            logp = self._out_logprobs(h_lang, dpos)[0]
+            if t == 0:
+                logp[:, 0] = -math.inf
+            elif c.decoding_constraint:
+                logp = logp.masked_fill(vocab == it[:, None], -math.inf)
+            nxt = torch.argmax(gumbel[t].to(logp.dtype) + logp / temp, -1)
+            lp = logp.gather(1, nxt[:, None])[:, 0]
+            unfinished = unfinished & (nxt > 0)
+            nxt = nxt * unfinished
+            seq[:, t] = nxt.to(torch.int32)
+            lps[:, t] = lp.float()
+            mws[:, t] = mw.float()
+            it = nxt
+        mws = mws * (seq > 0)[..., None].float()
+        return {"seq": seq, "logprobs": lps, "module_weights": mws}
 
     @torch.no_grad()
     def sample_beam(self, feat_bef, feat_aft, feat_diff,
@@ -385,6 +456,13 @@ class DynamicSpeaker(nn.Module):
         return {"seq": g_seqs[0], "logprob": g_ps[0],
                 "group_seqs": torch.stack(g_seqs, dim=1),
                 "group_logprobs": torch.stack(g_ps, dim=1)}
+
+
+def gumbel_draws(shape, gen: torch.Generator) -> torch.Tensor:
+    """Standard Gumbel draws, f32, on the generator's device:
+    -log(-log(u)) with u uniform in [tiny, 1), so no log(0)."""
+    u = torch.rand(shape, generator=gen, device=gen.device)
+    return -torch.log(-torch.log(u.clamp(min=torch.finfo(u.dtype).tiny)))
 
 
 #: the matrix products whose outputs remat 'dots' keeps

@@ -104,12 +104,20 @@ class EkaidModel(nn.Module):
         return {**enc, **dec}
 
     @torch.no_grad()
-    def decode(self, batch) -> Dict[str, torch.Tensor]:
-        """Greedy eval/inference path: the encoder's outputs plus seq,
-        logprobs and module_weights."""
+    def decode(self, batch, sample_max: bool = True,
+               temperature: Optional[float] = None,
+               gumbel: Optional[torch.Tensor] = None,
+               gen: Optional[torch.Generator] = None,
+               early_exit: bool = True) -> Dict[str, torch.Tensor]:
+        """Eval/inference path: the encoder's outputs plus seq, logprobs
+        and module_weights of `DynamicSpeaker.sample` (greedy by
+        default; sample_max=False draws multinomially, with the draws
+        from gumbel or gen)."""
         enc = self.encode(batch)
         dec = self.speaker.sample(enc["feat_bef"], enc["feat_aft"],
-                                  enc["feat_diff"])
+                                  enc["feat_diff"], sample_max=sample_max,
+                                  temperature=temperature, gumbel=gumbel,
+                                  gen=gen, early_exit=early_exit)
         return {**enc, **dec}
 
     @torch.no_grad()

@@ -208,7 +208,14 @@ class TrainState:
                 "opt": self.opt.state_dict()}
 
     def load_state_dict(self, sd: dict) -> None:
+        """A file without "opt" holds parameters only (a converted
+        reference checkpoint, `tools/torch_convert.py --kind model`):
+        the optimizer keeps the state it has."""
         self.step = int(sd["step"])
+        if "opt" not in sd:
+            from ekaid_torch.tools.torch_convert import load_params
+            load_params(self.model, sd["params"])
+            return
         self.model.load_state_dict(sd["params"])
         self.opt.load_state_dict(sd["opt"])
 

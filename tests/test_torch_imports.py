@@ -25,7 +25,8 @@ loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "orbax", "ekaid_tpu"))
 host = sorted(m for m in sys.modules
-              if m.split(".")[0] in ("h5py", "PIL", "pandas", "tensorstore"))
+              if m.split(".")[0] in ("h5py", "PIL", "pandas", "tensorstore",
+                                     "matplotlib"))
 print(json.dumps({"modules": names, "loaded": loaded, "host": host}))
 """
 
@@ -53,15 +54,19 @@ def test_port_imports_no_jax_and_no_reference_package(probe):
                  "utils.logging", "utils.checkpoint", "utils.orbax_import",
                  "train.test", "serving.server", "serving.webui",
                  "serving.client", "train.train_detector",
-                 "data.detection", "metrics.detection"):
+                 "data.detection", "metrics.detection", "data.images",
+                 "data.preprocess", "tools.torch_convert", "tools.pipeline",
+                 "utils.observability", "viz.draw", "viz.ask",
+                 "viz.examples"):
         assert f"ekaid_torch.{name}" in probe["modules"], name
     assert probe["loaded"] == []
 
 
 def test_port_imports_no_optional_host_packages(probe):
-    """h5py (the graph file), PIL (PNG input), pandas (the CheXpert and
-    question CSVs) and tensorstore (orbax checkpoints) load only when
-    used: the card's machine has none of them."""
+    """h5py (the graph file), PIL (image files), pandas (the CheXpert and
+    question CSVs), tensorstore (orbax checkpoints) and matplotlib (the
+    figures) load only when used: the card's machine lacks some of
+    them."""
     assert probe["host"] == []
 
 
