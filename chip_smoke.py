@@ -189,6 +189,33 @@ Phases, each fatal on failure:
      a numpy stand-in for the part of h5py's API the port uses
      (`h5py_module`). K1's and K2's launches here add to their
      `kernels` entries.
+ 14. the eval knobs and the native host library, at flagship widths
+     with phase 3's weights and batch: (a) `pair_batch`: the engine's
+     bf16 model encodes B=64 with 'off' and 'on' (encoder ms, median of
+     KNOB_REPS synced host clocks; device operations an encode from
+     torch.profiler) and answers KNOB_ANSWERS batch-1 questions with each
+     (K1 once an answer, counted); at f32, the encoder outputs of 'on'
+     within PAIR_RTOL x max|x| of 'off', K1's tokens on both equal to the
+     plain decode's up to a near-tie, and a training-mode forward (B=8)
+     with 'train' bit-equal to 'on' under one generator; (b)
+     `decode_kernel='xla'`, the torch step loop, never launching K1: f32
+     B=64 tokens equal to K1's up to a near-tie, the equal prefix's
+     logprobs within LOOP_LP_GATE; bf16 ms a batch beside K1's decode;
+     (c) `weight_quant='int8'`: `quantize_matrix` on the card bit-equal
+     to the CPU for every large core matrix; the f32 int8 loop of INT8_B
+     rows card vs CPU (near-tie rule on the CPU's scores, prefix logprobs
+     within LOOP_LP_GATE); bf16 B=64 ms, token share against the
+     unquantized loop, peak memory; an int8 multinomial decode of INT8_B
+     pairs (the ask path) whose logprobs must differ from the
+     unquantized decode's on the same draws; (d) `fused_core`, which runs
+     the core's own step: the f32 loop bit-equal to the unfused loop;
+     (e) the native library: g++ build seconds cold and warm, phase 8's
+     adjacency of 8 x 52 boxes bit-equal to numpy, both row gathers over
+     a memmap of GATHER_ROWS rows byte-equal to numpy slicing, 11a's
+     caption scores native against Python within CAPTION_TOL, host graph
+     assembly ms, the caption metrics' seconds and BLEU + ROUGE-L's
+     (the metrics with native parts), native and plain. K1's launches
+     here add to its `kernels` entry.
 Prints one `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}, after a `record:` line with every number
 as JSON. Without a CUDA device, or outside the repository, it exits
@@ -281,6 +308,14 @@ ASK_SAMPLES = 32                   # 13c
 MULTI_ROWS = 8                     # the card-vs-CPU multinomial decode
 MULTI_LP_GATE = 1e-4
 CONV_IMAGES = 8                    # 13d
+# phase 14: the eval knobs and the native host library
+KNOB_REPS = 10                     # 14a: encodes timed a setting
+KNOB_ANSWERS = 10                  # 14a: batch-1 answers timed a setting
+PAIR_RTOL = 1e-5                   # 14a: 'on' vs 'off', of max|x|
+INT8_B = 8                         # 14c: the card-vs-CPU int8 decode
+LOOP_LP_GATE = 1e-4                # 14b-d: logprobs of the equal prefix
+GATHER_ROWS = 1000                 # 14e: rows of the memmap
+CAPTION_TOL = 1e-12                # 14e: caption scores, native vs Python
 
 
 def log(msg: str) -> None:
@@ -667,10 +702,12 @@ def check_records(records, det, what: str) -> float:
     return float(np.mean(found))
 
 
-def extraction(rec: dict, cfg=None, device: str = "cuda") -> list:
+def extraction(rec: dict, cfg=None, device: str = "cuda",
+               keep: dict = None) -> list:
     """Phases 6-8: K2/K3 against their plain versions, the extraction
     path, and the times, at the flagship detector config unless `cfg`
-    is given. Returns the kernels-line entries of K2 and K3."""
+    is given. Returns the kernels-line entries of K2 and K3; `keep`
+    receives the extractor and one dispatched batch (phase 14e)."""
     import numpy as np
     import torch
     from ekaid_torch.config import load_config
@@ -885,6 +922,8 @@ def extraction(rec: dict, cfg=None, device: str = "cuda") -> list:
             disp = stage("both detectors", lambda: ex.dispatch(batches[1]))
             stage("host graph assembly", lambda: ex.finish(disp))
     rec["stages_ms"] = stages
+    if keep is not None:
+        keep.update(extractor=ex, dispatched=disp)
     log(f"    extraction end to end: {rec['extract_images_per_s']:.1f} "
         f"images/s over {len(sink.records)} images ({cfg.dtypes.compute_dtype}"
         f", {det.image_size}^2, batch {bs}); backbone {rec['backbone_ms']:.2f} ms per batch")
@@ -1985,12 +2024,14 @@ def plain_step0(model, batch):
                                       feats)["seq"][:, 0]
 
 
-def inference_phase(rec: dict, cfg, device: str = "cuda") -> tuple:
+def inference_phase(rec: dict, cfg, device: str = "cuda",
+                    keep: dict = None) -> tuple:
     """Phase 11, the inference entry points on phase 10's snapshots:
     (a) the eval driver and score analysis, (b) beam search, (c) the
     coalescing HTTP server and the batch-1 engine, (d) the extraction
     runner on detector weights read from files. Returns the launches of
-    K1 and of K2 on these paths."""
+    K1 and of K2 on these paths; `keep` receives 11a's ground truth and
+    answers (phase 14e)."""
     import contextlib
     import io
     import numpy as np
@@ -2066,6 +2107,8 @@ def inference_phase(rec: dict, cfg, device: str = "cuda") -> tuple:
                      if line.startswith("Test took"))
     gt = work / "c" / "gt.json"
     gt.write_text(json.dumps(tr._gt_annotations(preds)))
+    if keep is not None:
+        keep["captions"] = (tr._gt_annotations(preds), dict(preds))
     with contextlib.redirect_stdout(io.StringIO()):
         acc = score.main(["-d", str(results), "-g", str(gt), "-a"])
         caption = score.main(["-d", str(results), "-g", str(gt)])
@@ -3537,6 +3580,416 @@ def raw_files_phase(rec: dict, cfg, device: str = "cuda",
     return k1_total, k2_total
 
 
+class Knobs:
+    """`module.cfg` replaced by a copy with `kw` set, for a `with`
+    block."""
+
+    def __init__(self, module, **kw):
+        self.module, self.kw = module, kw
+
+    def __enter__(self):
+        self.old = self.module.cfg
+        self.module.cfg = self.old.replace(**self.kw)
+        return self.module
+
+    def __exit__(self, *exc):
+        self.module.cfg = self.old
+
+
+def keep_scores(speaker, gumbel=None, temperature: float = 1.0) -> list:
+    """Wrap the speaker's `_out_logprobs` so that each step of its torch
+    loop appends the step's scores [B, V], f64 on the CPU: logp for a
+    greedy loop, draw + logp / temperature for a multinomial one, with
+    the step-0 NULL ban. `del speaker._out_logprobs` undoes it."""
+    scores = []
+    f = speaker._out_logprobs
+
+    def kept(h, dpos, mask=None):
+        lp = f(h, dpos, mask)
+        t = len(scores)
+        s = lp[0].double()
+        if gumbel is not None:
+            s = gumbel[t].to(s.device).double() + s / temperature
+        if t == 0:
+            s[:, 0] = -math.inf
+        scores.append(s.cpu())
+        return lp
+
+    speaker._out_logprobs = kept
+    return scores
+
+
+def loop_agree(out, ref, scores, tol: float, what: str) -> dict:
+    """`multinomial_agree` of two torch-loop decodes (the scores are
+    `ref`'s), and the equal prefix's logprobs within LOOP_LP_GATE."""
+    r = multinomial_agree(out, ref, scores, tol, what)
+    if r["prefix_lp_err"] > LOOP_LP_GATE:
+        raise AssertionError(f"{what}: logprobs of the equal prefix "
+                             f"{r['prefix_lp_err']} > {LOOP_LP_GATE}")
+    return r
+
+
+def prefix_lp_err(a, b) -> float:
+    d = (a["seq"] != b["seq"]).cpu()
+    prefix = ~(d.cumsum(1) > 0)
+    return ((a["logprobs"].cpu() - b["logprobs"].cpu()).abs()
+            * prefix).max().item()
+
+
+def knobs_phase(rec: dict, cfg, m16, batch, engine, keep: dict,
+                device: str = "cuda") -> int:
+    """Phase 14: the eval knobs and the native host library at `cfg`'s
+    widths. m16: the engine's bf16 model; batch: phase 3's numpy batch;
+    keep: phase 8's extractor and dispatched batch, phase 11a's captions.
+    Returns K1's launches on the path (the batch-1 answers of 14a)."""
+    import shutil
+    import numpy as np
+    import torch
+    from ekaid_torch.extract import pipeline as xp
+    from ekaid_torch.metrics import caption as cap
+    from ekaid_torch.metrics.coco import CaptionEvaluator, CocoCaptions
+    from ekaid_torch.models import greedy_decode as gd
+    from ekaid_torch.models import quant
+    from ekaid_torch.models.decoder import DynamicSpeaker, gumbel_draws
+    from ekaid_torch.models.ekaid import EkaidModel
+    from ekaid_torch.native import bindings
+    from ekaid_torch.ops.graph import spatial_adjacency
+    from ekaid_torch.utils.dtypes import F32
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t_phase = time.perf_counter()
+    r = rec["knobs"] = {}
+    sp = cfg.speaker
+    B = len(batch["question"])
+    tol = rec.get("near_tie_tol", NEAR_TIE_FLOOR)    # phase 3 sets it
+    dt16 = str(m16.policy.compute_dtype).replace("torch.", "")
+
+    def host_ms(fn, reps: int) -> float:
+        """Median of `reps` synced host clocks of fn, after one warm-up."""
+        ts = []
+        for _ in range(reps + 1):
+            sync()
+            t = time.perf_counter()
+            fn()
+            sync()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts[1:])
+
+    # ---- 14a. pair_batch ---------------------------------------------------
+    dev_batch = m16.tensors(batch)
+    idxs = engine.ds.split_idxs
+    a = r["pair_batch"] = {"encode_ms": {}, "device": {}, "answer_ms": {}}
+    turns = {"off": ([], []), "on": ([], [])}
+    gd.greedy_decode.launches = 0
+    for pb in ("off", "on", "on", "off"):            # in turns
+        with Knobs(m16.change_detector, pair_batch=pb):
+            turns[pb][0].append(host_ms(lambda: m16.encode(dev_batch),
+                                        KNOB_REPS // 2))
+            turns[pb][1].extend(
+                engine.answer(None, int(idxs[i % len(idxs)]))["latency_ms"]
+                for i in range(KNOB_ANSWERS // 2))
+    k1 = gd.greedy_decode.launches
+    for pb, (enc_ms, answer_ms) in turns.items():
+        a["encode_ms"][pb] = statistics.mean(enc_ms)
+        a["answer_ms"][pb] = statistics.median(answer_ms)
+        with Knobs(m16.change_detector, pair_batch=pb):
+            busy = (device_busy(lambda: m16.encode(dev_batch)) if cuda
+                    else {})
+            a["device"][pb] = {k: busy.get(k) for k in (
+                "launches", "wall_ms", "busy_ms", "busy_share")}
+    if cuda and k1 != 2 * KNOB_ANSWERS:
+        raise AssertionError(f"14a: K1 launched {k1} times for "
+                             f"{2 * KNOB_ANSWERS} answers")
+    ntoken = sp.vocab_size - 1               # the identity vocab's words
+    m32 = EkaidModel(cfg, ntoken, policy=F32, device=device, seed=SEED)
+    b32 = m32.tensors(batch)
+    encs = {}
+    for pb in ("off", "on"):
+        with Knobs(m32.change_detector, pair_batch=pb):
+            encs[pb] = m32.encode(b32)
+    a["f32_gap_of_max"] = {}
+    for k, v in encs["off"].items():
+        gap = (encs["on"][k] - v).abs().max().item()
+        top = v.abs().max().item()
+        a["f32_gap_of_max"][k] = gap / top if top else gap
+        if gap > PAIR_RTOL * top:
+            raise AssertionError(f"14a: {k} of 'on' is {gap} off 'off' "
+                                 f"(> {PAIR_RTOL} x {top})")
+    sp32 = m32.speaker
+    w32 = sp32.decode_weights()
+    fx = {pb: sp32._fused(e["feat_bef"], e["feat_diff"], e["feat_aft"])
+          for pb, e in encs.items()}
+    plain = gd.greedy_decode_plain(w32, sp, F32, *fx["off"])
+    k1_out = {pb: gd.greedy_decode(w32, sp, F32, *fx[pb]) for pb in fx}
+    sync()
+    # the near-tie threshold covers the scores' move between the inputs
+    step0 = (k1_out["on"]["logprobs"][:, 0]
+             - k1_out["off"]["logprobs"][:, 0]).abs().max().item()
+    a["k1_step0_lp_gap"] = step0
+    tol_a = max(tol, 4 * step0)
+    a["k1_vs_plain"] = {pb: near_tie_agree(
+        w32, sp, F32, *fx["off"], plain, k1_out[pb], tol_a,
+        f"14a K1 pair_batch {pb!r}") for pb in fx}
+    small = {k: v[:TRAIN_B] for k, v in batch.items()}
+    fwd = {}
+    with torch.no_grad():
+        for pb in ("train", "on", "off"):
+            with Knobs(m32.change_detector, pair_batch=pb):
+                fwd[pb] = m32(small, gen=torch.Generator(
+                    device=device).manual_seed(SEED))
+    for k, v in fwd["on"].items():
+        if not torch.equal(fwd["train"][k], v):
+            raise AssertionError(f"14a: training-mode {k} of 'train' "
+                                 "differs from 'on' under one generator")
+    if torch.equal(fwd["off"]["feat_diff"], fwd["on"]["feat_diff"]):
+        raise AssertionError("14a: 'off' drew the same dropout as 'on'")
+    log(f"[14a] pair_batch, {dt16} B={B}: encoder ms off "
+        f"{a['encode_ms']['off']:.2f} / on {a['encode_ms']['on']:.2f} "
+        f"(two turns each, off-on-on-off, of the median of "
+        f"{KNOB_REPS // 2}); torch.profiler, an encode: " + ("; ".join(
+            f"{pb} {d['launches']:.0f} device operations, the card busy "
+            f"{d['busy_ms']:.2f} of {d['wall_ms']:.2f} ms"
+            for pb, d in a["device"].items()) if cuda else "not on the CPU")
+        + "; batch-1 "
+        f"answer ms off {a['answer_ms']['off']:.2f} / on "
+        f"{a['answer_ms']['on']:.2f} (median of {KNOB_ANSWERS}; K1 "
+        f"{k1} launches)")
+    log(f"      f32: 'on' vs 'off' outputs within "
+        f"{max(a['f32_gap_of_max'].values()):.3g} of max|x| (gate "
+        f"{PAIR_RTOL}); K1 on both vs the plain decode: rows differing "
+        f"off {a['k1_vs_plain']['off']['rows_differ']}, on "
+        f"{a['k1_vs_plain']['on']['rows_differ']} (near-tie tol "
+        f"{tol_a:.3g}); training mode 'train' == 'on' bit for bit")
+
+    # ---- 14b. decode_kernel='xla': the torch loop --------------------------
+    feats32 = (encs["off"]["feat_bef"], encs["off"]["feat_aft"],
+               encs["off"]["feat_diff"])
+    gd.greedy_decode.launches = 0
+    with Knobs(sp32, decode_kernel="xla"):
+        loop32 = sp32.sample(*feats32)
+    sync()
+    if gd.greedy_decode.launches:
+        raise AssertionError("14b: the torch loop launched K1")
+    b_ = r["xla_loop"] = {"vs_k1": near_tie_agree(
+        w32, sp, F32, *fx["off"], k1_out["off"], loop32, tol,
+        "14b loop vs K1 f32"), "prefix_lp_err": prefix_lp_err(
+            loop32, k1_out["off"])}
+    if b_["prefix_lp_err"] > LOOP_LP_GATE:
+        raise AssertionError(f"14b: loop vs K1 logprobs {b_['prefix_lp_err']}"
+                             f" > {LOOP_LP_GATE}")
+    sp16 = m16.speaker
+    e16 = m16.encode(dev_batch)
+    feats16 = (e16["feat_bef"], e16["feat_aft"], e16["feat_diff"])
+    with Knobs(sp16, decode_kernel="xla"):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if cuda else 0
+        loop16 = sp16.sample(*feats16)
+        b_["peak_mib"] = ((torch.cuda.max_memory_allocated() - base) / 2**20
+                          if cuda else None)
+    b_["steps"] = steps_run(loop16["seq"])
+    log(f"[14b] decode_kernel='xla', B={B}: f32 loop vs K1 rows differing "
+        f"{b_['vs_k1']['rows_differ']}, equal prefix's logprobs within "
+        f"{b_['prefix_lp_err']:.3g} (gate {LOOP_LP_GATE}); {dt16} loop "
+        f"{b_['steps']} steps, peak {b_['peak_mib']} MiB over the model")
+
+    # ---- 14c. int8 -------------------------------------------------------
+    c_ = r["int8"] = {"matrices": []}
+    for name, p in sp32.core.named_parameters():
+        if p.dim() == 2 and p.numel() >= quant.QUANT_MIN_ELEMS:
+            qd, sd = quant.quantize_matrix(p)
+            qc, sc = quant.quantize_matrix(p.detach().cpu())
+            if not (torch.equal(qd.cpu(), qc) and torch.equal(sd.cpu(), sc)):
+                raise AssertionError(f"14c: quantize_matrix of {name} on "
+                                     f"{device} differs from the CPU's")
+            c_["matrices"].append(name)
+    cpu_sp = DynamicSpeaker(sp, F32)
+    cpu_sp.load_state_dict({k: v.detach().cpu()
+                            for k, v in sp32.state_dict().items()})
+    f8 = tuple(x[:INT8_B] for x in feats32)
+    with Knobs(sp32, decode_kernel="xla", weight_quant="int8"), \
+            Knobs(cpu_sp, decode_kernel="xla", weight_quant="int8"):
+        card8 = sp32.sample(*f8)
+        scores8 = keep_scores(cpu_sp)
+        cpu8 = cpu_sp.sample(*(x.cpu() for x in f8))
+        del cpu_sp._out_logprobs
+    c_["f32_card_vs_cpu"] = loop_agree(card8, cpu8, scores8, tol,
+                                       "14c int8 f32 card vs CPU")
+    with Knobs(sp16, decode_kernel="xla", weight_quant="int8"):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        q16 = sp16.sample(*feats16)
+        c_["peak_mib"] = ((torch.cuda.max_memory_allocated() - base)
+                          / 2**20 if cuda else None)
+    c_["bf16_token_share_vs_unquantized"] = (
+        q16["seq"] == loop16["seq"]).float().mean().item()
+    T, V = sp.seq_length, sp.vocab_size
+    g = gumbel_draws((T, INT8_B, V), torch.Generator().manual_seed(SEED))
+    ask = {k: v[:INT8_B] for k, v in dev_batch.items()}
+    outs = {}
+    for wq in ("int8", "none"):
+        with Knobs(sp16, decode_kernel="xla", weight_quant=wq):
+            outs[wq] = m16.decode(ask, sample_max=False, gumbel=g.to(device))
+        if not torch.isfinite(outs[wq]["logprobs"]).all() or tuple(
+                outs[wq]["seq"].shape) != (INT8_B, T):
+            raise AssertionError(f"14c: multinomial {wq} decode malformed")
+    if torch.equal(outs["int8"]["logprobs"], outs["none"]["logprobs"]):
+        raise AssertionError("14c: the int8 multinomial decode equals the "
+                             "unquantized one: weight_quant is not applied")
+    c_["multinomial_lp_gap"] = (outs["int8"]["logprobs"]
+                                - outs["none"]["logprobs"]).abs().max().item()
+    log(f"[14c] int8: {len(c_['matrices'])} core matrices quantized on the "
+        f"card bit-equal to the CPU ({', '.join(c_['matrices'])}); f32 "
+        f"B={INT8_B} card vs CPU rows differing "
+        f"{c_['f32_card_vs_cpu']['rows_differ']}, prefix logprobs within "
+        f"{c_['f32_card_vs_cpu']['prefix_lp_err']:.3g}; {dt16} B={B} "
+        f"tokens equal to the unquantized "
+        f"loop {c_['bf16_token_share_vs_unquantized']:.4f}, peak "
+        f"{c_['peak_mib']} MiB over the model (unquantized loop "
+        f"{b_['peak_mib']}); multinomial of {INT8_B} pairs: logprobs move "
+        f"{c_['multinomial_lp_gap']:.3g} from the unquantized decode")
+
+    # ---- 14d. fused_core: the core's own step ----------------------------
+    with Knobs(sp32, decode_kernel="xla", fused_core=True):
+        fused32 = sp32.sample(*feats32)
+    if not all(torch.equal(fused32[k], loop32[k]) for k in loop32):
+        raise AssertionError("14d: the fused_core loop differs from the "
+                             "unfused loop")
+    r["fused_core"] = {"f32_equal_to_unfused": True}
+    log(f"[14d] fused_core: f32 B={B} loop bit-equal to the unfused loop "
+        "(the knob takes the core's step)")
+    # the decode paths' times, in turns (K1, loop, int8, then back)
+    paths = {"k1": {}, "loop": {"decode_kernel": "xla"},
+             "int8": {"decode_kernel": "xla", "weight_quant": "int8"}}
+    order = list(paths) + list(paths)[::-1]
+    runs = {k: [] for k in paths}
+    for name in order:
+        with Knobs(sp16, **paths[name]):
+            runs[name].append(host_ms(lambda: sp16.sample(*feats16), 2))
+    ms = r["decode_ms"] = {k: statistics.mean(v) for k, v in runs.items()}
+    r["decode_runs_ms"] = runs
+    log(f"[14b-c] {dt16} B={B} decode ms a batch ({b_['steps']} steps; host "
+        f"clock, synced; turns {'-'.join(order)}, 2 decodes a turn): K1 "
+        f"{ms['k1']:.2f}, torch loop {ms['loop']:.2f}, int8 loop "
+        f"{ms['int8']:.2f}")
+
+    # ---- 14e. the native host library -------------------------------------
+    e_ = r["native"] = {}
+    work = ROOT / "build" / "phase14"
+    shutil.rmtree(work, ignore_errors=True)
+    for what in ("build_cold_s", "build_warm_s"):
+        t = time.perf_counter()
+        bindings.build(work / "native")
+        e_[what] = time.perf_counter() - t
+    ex, disp = keep["extractor"], keep["dispatched"]
+    recs = ex.finish(disp)
+    boxes = np.stack([x["image_bb"] for x in recs])
+    pad = recs[0]["image_adj_matrix"].shape[0]
+    got = bindings.spatial_adjacency_batch(boxes, pad=pad)
+    want = np.stack([spatial_adjacency(b, pad_to=pad) for b in boxes])
+    if not np.array_equal(got, want) or not all(
+            np.array_equal(x["image_adj_matrix"], w)
+            for x, w in zip(recs, want)):
+        raise AssertionError("14e: the native adjacency differs from numpy")
+    e_["adjacency_boxes"] = list(boxes.shape)
+    rng = np.random.default_rng(SEED)
+    rows = rng.integers(0, 11, (GATHER_ROWS, pad, pad))
+    path = work / "rows.bin"
+    rows.tofile(path)
+    mm = np.memmap(path, np.uint8, "r")
+    perm = rng.permutation(GATHER_ROWS)
+    rowbytes = pad * pad * 8
+    starts = perm * rowbytes
+    out = np.empty((GATHER_ROWS, rowbytes), np.uint8)
+    out32 = np.empty((GATHER_ROWS, pad * pad), np.int32)
+    bindings.gather_rows(mm.ctypes.data, starts, rowbytes, out)  # warm
+    t = time.perf_counter()
+    ref = np.stack([mm[s:s + rowbytes] for s in starts])
+    e_["gather_numpy_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    bindings.gather_rows(mm.ctypes.data, starts, rowbytes, out)
+    e_["gather_ms"] = (time.perf_counter() - t) * 1e3
+    bindings.gather_rows_i64_i32(mm.ctypes.data, starts, pad * pad, out32)
+    if not (np.array_equal(out, ref) and np.array_equal(
+            out32, rows[perm].reshape(GATHER_ROWS, -1).astype(np.int32))):
+        raise AssertionError("14e: the native gathers differ from numpy")
+    del mm, ref, out
+    gts, preds = keep["captions"]
+    tok_gts = {}
+    for ann in gts["annotations"]:
+        tok_gts.setdefault(ann["image_id"], []).append(
+            cap.ptb_tokenize(ann["caption"]))
+    tok_res = {k: cap.ptb_tokenize(v) for k, v in preds.items()}
+
+    def caption_scores():
+        res = CocoCaptions(annotations={"annotations": [
+            {"image_id": k, "caption": v, "id": k} for k, v in
+            preds.items()]})
+        t = time.perf_counter()
+        s = CaptionEvaluator(CocoCaptions(annotations=gts), res).evaluate()
+        secs = time.perf_counter() - t
+        t = time.perf_counter()
+        cap.bleu(tok_gts, tok_res)
+        cap.rouge_l(tok_gts, tok_res)
+        return s, secs, time.perf_counter() - t
+
+    def assembly_ms():
+        ts = []
+        for _ in range(5):
+            t = time.perf_counter()
+            ex.finish(disp)
+            ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts[1:])
+
+    saved = cap._native, xp._native
+    times = {"native": ([], [], []), "plain": ([], [], [])}
+    scores = {}
+    for how in ("native", "plain", "plain", "native"):   # in turns
+        if how == "plain":
+            cap._native = xp._native = lambda: None
+        try:
+            scores[how], secs, bleu_rouge_s = caption_scores()
+            times[how][0].append(secs)
+            times[how][1].append(assembly_ms())
+            times[how][2].append(bleu_rouge_s)
+        finally:
+            cap._native, xp._native = saved
+    nat_scores, py_scores = scores["native"], scores["plain"]
+    e_["caption_s"], e_["caption_python_s"] = (
+        statistics.mean(times[h][0]) for h in ("native", "plain"))
+    e_["graph_assembly_ms"], e_["graph_assembly_numpy_ms"] = (
+        statistics.mean(times[h][1]) for h in ("native", "plain"))
+    e_["bleu_rouge_s"], e_["bleu_rouge_python_s"] = (
+        statistics.mean(times[h][2]) for h in ("native", "plain"))
+    e_["caption_tokens"] = sum(map(len, tok_res.values())) + sum(
+        len(t) for refs in tok_gts.values() for t in refs)
+    for k in ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "ROUGE_L", "METEOR"):
+        if abs(nat_scores[k] - py_scores[k]) > CAPTION_TOL:
+            raise AssertionError(f"14e: {k} native {nat_scores[k]} vs "
+                                 f"Python {py_scores[k]}")
+    e_["captions"] = len(preds)
+    shutil.rmtree(work, ignore_errors=True)
+    r["seconds"] = time.perf_counter() - t_phase
+    log(f"[14e] native: g++ build {e_['build_cold_s']:.2f} s cold, "
+        f"{e_['build_warm_s']:.3f} s warm (hash hit); adjacency of "
+        f"{boxes.shape[0]} x {boxes.shape[1]} boxes bit-equal to numpy")
+    log(f"      host graph assembly, a batch of {len(recs)}: native "
+        f"{e_['graph_assembly_ms']:.2f} ms, numpy "
+        f"{e_['graph_assembly_numpy_ms']:.2f} ms (turns native-numpy-"
+        f"numpy-native, each the median of 4)")
+    log(f"      gather of {GATHER_ROWS} rows of {rowbytes} bytes: native "
+        f"{e_['gather_ms']:.2f} ms, numpy {e_['gather_numpy_ms']:.2f} ms; "
+        "both gathers byte-equal to numpy")
+    log(f"      caption metrics of {len(preds)} answers (11a, "
+        f"{e_['caption_tokens']} tokens with the references): native "
+        f"{e_['caption_s']:.4f} s, Python {e_['caption_python_s']:.4f} s; "
+        f"of which BLEU + ROUGE-L native {e_['bleu_rouge_s']:.4f} s, Python "
+        f"{e_['bleu_rouge_python_s']:.4f} s (means of two turns); BLEU-1..4, "
+        f"ROUGE-L, METEOR equal within {CAPTION_TOL}")
+    log(f"     phase 14 took {r['seconds']:.1f} s")
+    return k1
+
+
 def main() -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -3728,14 +4181,15 @@ def main() -> dict:
         "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": None}]
-    kernels_line += extraction(rec)
+    keep = {}                                # phase 14's inputs
+    kernels_line += extraction(rec, keep=keep)
     kernels_line.append(nms_phase(rec, cfg))
 
     # ---- 10. the training path, whose in-training evals run K1 -----------
     kernels_line[0]["launches"] += train_phase(rec, cfg)
 
     # ---- 11. the inference entry points on phase 10's snapshots ----------
-    k1, k2 = inference_phase(rec, cfg)
+    k1, k2 = inference_phase(rec, cfg, keep=keep)
     kernels_line[0]["launches"] += k1
     k2_entry = next(k for k in kernels_line
                     if k["name"] == "roi_align_canvas")
@@ -3752,6 +4206,11 @@ def main() -> dict:
     k1, k2 = raw_files_phase(rec, cfg)
     kernels_line[0]["launches"] += k1
     k2_entry["launches"] += k2
+
+    # ---- 14. the eval knobs and the native host library: K1 in the
+    # batch-1 answers with pair_batch off and on ---------------------------
+    kernels_line[0]["launches"] += knobs_phase(rec, cfg, m16, batch, engine,
+                                               keep)
     kline = {"kernels": kernels_line}
     log("record: " + json.dumps(rec))
     print(json.dumps(kline))

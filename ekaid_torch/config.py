@@ -23,6 +23,8 @@ from typing import Any, Optional, Tuple
 
 import yaml
 
+from ekaid_torch.utils.platform import DECODE_KERNELS
+
 
 def _frozen(cls):
     cls = dataclass(frozen=True)(cls)
@@ -52,8 +54,20 @@ class ChangeDetectorConfig:
     # 'reference': 2x the direction-1 attention only (as executed);
     # 'sum': self + both directions.
     dir_reduce: str = "reference"
-    # 'off' only in the port: bef and aft run as two [B] passes.
+    # bef and aft through the encoder stack: 'off', two [B] passes; 'on',
+    # one [2B] pass; 'train', the [2B] pass in training only. The legacy
+    # True / False (also as the strings a YAML or JSON overlay coerces
+    # them to) mean 'on' / 'off'.
     pair_batch: str = "off"
+
+    def __post_init__(self):
+        legacy = {True: "on", False: "off", "True": "on", "False": "off"}
+        pb = self.pair_batch
+        if isinstance(pb, (bool, str)) and pb in legacy:
+            object.__setattr__(self, "pair_batch", legacy[pb])
+        elif pb not in ("off", "on", "train"):
+            raise ValueError(f"change_detector.pair_batch {pb!r}: one of "
+                             "'off', 'on', 'train' (or True / False)")
 
 
 @_frozen
@@ -73,18 +87,30 @@ class SpeakerConfig:
     diversity_lambda: float = 0.5
     temperature: float = 1.0
     scan_unroll: int = 1
-    # reference-package decode knobs; the port's greedy kernel refuses
-    # both (they rewrite the step the kernel replaces)
+    # eval-only decode knobs of the torch step loop: merge the step's
+    # independent products (fused_core) or store the large core matrices
+    # as int8 ('none' | 'int8'; models/quant.py). The greedy kernel
+    # refuses both, so they need decode_kernel 'xla'.
     fused_core: bool = False
     weight_quant: str = "none"
-    # reference-package kernel selector; the port picks by the tensor's
-    # device instead (CUDA -> kernel, CPU -> plain torch loop)
+    # the greedy decode: 'auto' = 'pallas', the kernel K1 (its plain twin
+    # for CPU tensors); 'xla', the torch step loop on either device;
+    # 'pallas_interpret', K1's plain twin, CPU tensors only
+    # (utils/platform.py::resolve_decode_kernel)
     decode_kernel: str = "auto"
     remat: str = "none"
     train_hoist: bool = False
     # BOS token fed at step 0 of free-running decode (the reference
     # primes with index 2 although '<start>' is 1; kept for parity)
     bos_token: int = 2
+
+    def __post_init__(self):
+        if self.weight_quant not in ("none", "int8"):
+            raise ValueError(f"speaker.weight_quant {self.weight_quant!r}: "
+                             "'none' or 'int8'")
+        if self.decode_kernel not in DECODE_KERNELS:
+            raise ValueError(f"speaker.decode_kernel {self.decode_kernel!r}:"
+                             f" one of {DECODE_KERNELS}")
 
 
 @_frozen

@@ -28,6 +28,7 @@ import numpy as np
 
 from ekaid_torch.data.synthetic import synthetic_image
 from ekaid_torch.data.vocab import Vocabulary
+from ekaid_torch.native.bindings import native as _native
 from ekaid_torch.ops.graph import spatial_adjacency
 
 
@@ -53,8 +54,9 @@ class _RawRows:
     h5py serializes every read behind one lock; for unfiltered datasets
     the rows sit in the file as plain C-order bytes (contiguous, or in
     per-chunk blobs whose offsets `get_chunk_info` gives), so after one
-    offset walk at open, row reads are numpy copies out of a shared
-    mmap, safe from any number of worker threads."""
+    offset walk at open, row reads are copies out of a shared mmap
+    (the native library's gather, off the GIL), safe from any number of
+    worker threads."""
 
     def __init__(self, dset, mm: np.memmap):
         if (dset.compression is not None or dset.shuffle
@@ -94,7 +96,9 @@ class _RawRows:
 
     def take(self, rows, out_dtype=None) -> np.ndarray:
         """Gather rows (any order, duplicates fine), cast to out_dtype
-        when given."""
+        when given. The native library's threaded gather copies them
+        (int64 rows asked for as int32 narrow in the same pass); numpy
+        slicing is the plain version."""
         rows = np.asarray(rows, np.int64).ravel()
         n = self.shape[0]
         rows = np.where(rows < 0, rows + n, rows)  # h5py semantics
@@ -103,11 +107,22 @@ class _RawRows:
                 f"row index out of range for dataset of {n} rows")
         starts = (self.offsets[rows // self.chunk_rows]
                   + (rows % self.chunk_rows) * self.rowbytes)
+        odt = np.dtype(out_dtype) if out_dtype is not None else self.dtype
+        nat = _native()
+        mm = self.mm            # the mapping stays alive across the call
+        if nat is not None and odt == np.int32 and self.dtype == np.int64:
+            rowelems = self.rowbytes // 8
+            out = np.empty((len(rows), rowelems), np.int32)
+            nat.gather_rows_i64_i32(mm.ctypes.data, starts, rowelems, out)
+            return out.reshape(len(rows), *self.row_shape)
         out = np.empty((len(rows), self.rowbytes), np.uint8)
-        for i, s in enumerate(starts):
-            out[i] = self.mm[s:s + self.rowbytes]
+        if nat is not None:
+            nat.gather_rows(mm.ctypes.data, starts, self.rowbytes, out)
+        else:
+            for i, s in enumerate(starts):
+                out[i] = mm[s:s + self.rowbytes]
         res = out.view(self.dtype).reshape(len(rows), *self.row_shape)
-        return res.astype(out_dtype, copy=False) if out_dtype is not None \
+        return res.astype(odt, copy=False) if out_dtype is not None \
             else res
 
 

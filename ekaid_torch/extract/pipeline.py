@@ -16,7 +16,10 @@ forward-hook scheme (SURVEY.md §3.3):
 Here detection runs batched on the device, one call per detector
 (FasterRCNN.extract / .detect), the host only does image IO, graph
 assembly and file writes, and all three stages fuse into a single pass
-per image pair of detectors. Output is the reference-compatible HDF5 layout
+per image pair of detectors. The spatial adjacency of graph assembly
+runs in the native host library (`native/bindings.py`); numpy's
+`ops/graph.py::spatial_adjacency` is its plain version. Output is the
+reference-compatible HDF5 layout
 (image_features [N,52,1024], image_bb [N,52,4], image_adj_matrix
 [N,100,100], semantic_adj_matrix [N,100,100], bbox_label [N,52]) so the
 model-side loader (H5FeatureStore) reads either pipeline's artifact.
@@ -36,6 +39,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ekaid_torch.data import knowledge as K
+from ekaid_torch.native.bindings import native as _native
 from ekaid_torch.ops.graph import spatial_adjacency
 
 
@@ -154,8 +158,13 @@ def combine_pair(ana: Dict[str, np.ndarray], dis: Dict[str, np.ndarray],
     labels = np.concatenate([ana_cls, dis_cls], 0).astype(np.int64)
 
     n = boxes.shape[0]
-    adj = np.zeros((adj_pad, adj_pad), np.int64)
-    adj[:n, :n] = spatial_adjacency(boxes.astype(np.float32))
+    nat = _native()
+    if nat is not None:
+        adj = nat.spatial_adjacency_batch(
+            boxes.astype(np.float32)[None], pad=adj_pad)[0].astype(np.int64)
+    else:
+        adj = np.zeros((adj_pad, adj_pad), np.int64)
+        adj[:n, :n] = spatial_adjacency(boxes.astype(np.float32))
 
     organs = organ_table[labels]
     disease = is_disease[labels]

@@ -15,6 +15,11 @@
     2005 parameters) is the fast fallback.
 
 Tokenization: lowercase, split, drop punctuation-only tokens.
+
+BLEU's clipped counts and ROUGE-L's LCS run in the native host library
+(`native/bindings.py`), one call a metric for the whole eval; the Python
+code beside each is its plain version (the tests run it with `_native`
+replaced by `lambda: None`).
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import math
 import re
 from collections import Counter
 from typing import Dict, List, Sequence, Tuple
+
+from ekaid_torch.native.bindings import native as _native
 
 PUNCT = {"{", "}", "(", ")", "[", "]", ".", ",", ";", ":", "-", "--",
          "...", "!", "?", "'", "`", '"', "''", "``", "&", "*", "#", "$",
@@ -52,6 +59,26 @@ def _ngrams(tokens: Sequence[str], n: int) -> Counter:
 
 # ------------------------------------------------------------------ BLEU ---
 
+def _bleu_counts(segments, max_n: int):
+    """Clipped n-gram matches and totals [n][max_n] of each segment
+    [candidate, *references]: the plain version of
+    `bindings.bleu_counts_batch`."""
+    matches, totals = [], []
+    for cand, *refs in segments:
+        m, t = [], []
+        for n in range(1, max_n + 1):
+            cnt = _ngrams(cand, n)
+            maxref: Counter = Counter()
+            for r in refs:
+                for ng, k in _ngrams(r, n).items():
+                    maxref[ng] = max(maxref[ng], k)
+            m.append(sum(min(k, maxref[ng]) for ng, k in cnt.items()))
+            t.append(max(0, len(cand) - n + 1))
+        matches.append(m)
+        totals.append(t)
+    return matches, totals
+
+
 def bleu(gts: Dict[str, List[List[str]]], res: Dict[str, List[str]],
          max_n: int = 4) -> Tuple[List[float], Dict[str, List[float]]]:
     """Corpus BLEU_1..max_n. gts: id -> list of reference token lists;
@@ -62,28 +89,25 @@ def bleu(gts: Dict[str, List[List[str]]], res: Dict[str, List[str]],
     cand_len = 0
     eff_ref_len = 0
     per_image: Dict[str, List[float]] = {}
+    segments = [[cand, *gts[img]] for img, cand in res.items()]
+    nat = _native()
+    if nat is None:
+        matches, totals = _bleu_counts(segments, max_n)
+    else:
+        matches, totals = (x.tolist() for x in
+                           nat.bleu_counts_batch(segments, max_n))
 
-    for img, cand in res.items():
+    for (img, cand), img_correct, img_guess in zip(res.items(), matches,
+                                                   totals):
         refs = gts[img]
         c = len(cand)
         cand_len += c
         # closest ref length; ties -> shorter
         eff = min((abs(len(r) - c), len(r)) for r in refs)[1]
         eff_ref_len += eff
-
-        img_correct, img_guess = [], []
-        for n in range(1, max_n + 1):
-            cnt = _ngrams(cand, n)
-            maxref: Counter = Counter()
-            for r in refs:
-                for ng, k in _ngrams(r, n).items():
-                    maxref[ng] = max(maxref[ng], k)
-            corr = sum(min(k, maxref[ng]) for ng, k in cnt.items())
-            gs = max(0, c - n + 1)
-            correct[n - 1] += corr
-            guess[n - 1] += gs
-            img_correct.append(corr)
-            img_guess.append(gs)
+        for n in range(max_n):
+            correct[n] += img_correct[n]
+            guess[n] += img_guess[n]
         # per-image score (with its own BP)
         scores = []
         bp_i = 1.0 if c > eff else math.exp(1 - eff / max(c, 1))
@@ -121,6 +145,11 @@ def _lcs_len(a: Sequence[str], b: Sequence[str]) -> int:
 
 def rouge_l(gts, res, beta: float = 1.2):
     """Mean ROUGE-L F-beta; per-image max precision/recall over refs."""
+    pairs = [(ref, cand) for img, cand in res.items() if cand
+             for ref in gts[img]]
+    nat = _native()
+    lcs_of = iter(nat.lcs_len_batch(pairs).tolist() if nat is not None
+                  else [_lcs_len(*p) for p in pairs])
     scores = {}
     for img, cand in res.items():
         if not cand:
@@ -128,7 +157,7 @@ def rouge_l(gts, res, beta: float = 1.2):
             continue
         precs, recs = [], []
         for ref in gts[img]:
-            lcs = _lcs_len(ref, cand)
+            lcs = next(lcs_of)
             precs.append(lcs / len(cand))
             recs.append(lcs / len(ref) if ref else 0.0)
         p, r = max(precs), max(recs)

@@ -12,9 +12,15 @@
 
 `branch_mix='sequential'` runs the three encoders as cumulative
 residuals (the reference model as executed); 'parallel' mixes three
-independent branches with coef_sem / coef_spa. Bef and aft run as two
-[B] passes (`pair_batch='off'`). The pixels-in mode0 front end is not
-ported yet.
+independent branches with coef_sem / coef_spa. `pair_batch` picks how
+bef and aft go through the shared encoder stack: 'off', two [B] passes;
+'on', one [2B] pass, the inputs concatenated (bef, aft)
+on the batch axis with the question vector twice, then split at B;
+'train', the [2B] pass in training only. Each row's math is the same
+either way, so eval outputs agree up to the products' sum order (a GEMM
+may block B and 2B rows differently); in training the [2B] pass draws
+one [2B] dropout mask a site from the generator where two passes draw
+two [B] masks. The pixels-in mode0 front end is not ported yet.
 
 Given a generator, the forward runs in training mode: the relation
 encoders and the question encoder drop as their modules say, and the
@@ -51,8 +57,6 @@ class ChangeDetector(nn.Module):
         if setting != "mode2":
             raise NotImplementedError(
                 f"setting {setting!r}: only mode2 is ported")
-        if cfg.pair_batch not in ("off", False):
-            raise NotImplementedError("only pair_batch='off' is ported")
         if cfg.branch_mix not in ("sequential", "parallel"):
             raise ValueError(f"unknown branch_mix {cfg.branch_mix!r}")
         self.cfg = cfg
@@ -132,10 +136,20 @@ class ChangeDetector(nn.Module):
         implicit = self.graph in _IMPLICIT
         pos_bef = self._position_emb(d_bb) if implicit else None
         pos_aft = self._position_emb(q_bb) if implicit else None
-        input_bef = self._encode_image(input_bef, d_adj, d_sem_adj,
-                                       pos_bef, q_vec, gen)
-        input_aft = self._encode_image(input_aft, q_adj, q_sem_adj,
-                                       pos_aft, q_vec, gen)
+        pb = self.cfg.pair_batch
+        if pb == "on" or (pb == "train" and gen is not None):
+            B = input_bef.shape[0]
+            enc = self._encode_image(
+                torch.cat([input_bef, input_aft]), torch.cat([d_adj, q_adj]),
+                torch.cat([d_sem_adj, q_sem_adj]),
+                torch.cat([pos_bef, pos_aft]) if implicit else None,
+                torch.cat([q_vec, q_vec]), gen)
+            input_bef, input_aft = enc[:B], enc[B:]
+        else:
+            input_bef = self._encode_image(input_bef, d_adj, d_sem_adj,
+                                           pos_bef, q_vec, gen)
+            input_aft = self._encode_image(input_aft, q_adj, q_sem_adj,
+                                           pos_aft, q_vec, gen)
         input_diff = input_aft - input_bef
 
         ctx_d = self.context1(input_diff)

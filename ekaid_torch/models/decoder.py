@@ -14,11 +14,14 @@ Two modes:
   * `sample`, free-running decode: primes with `bos_token` (2, as the
     reference model does), bans NULL at the first step, optionally bans
     repeating the previous token, and stops when every row has emitted
-    0. Greedy: the loop runs in `models/greedy_decode.py`, the CUDA
-    kernel on the card and its plain version on the CPU. Multinomial
-    (`sample_max=False`): plain torch on either device, one
-    `DynamicCore` step a time step, as the reference runs it as XLA and
-    never in its kernel.
+    0. Greedy, with `decode_kernel` 'auto' or 'pallas': the loop runs in
+    `models/greedy_decode.py`, the CUDA kernel K1 on the card and its
+    plain version on the CPU. Greedy with 'xla', and every multinomial
+    decode (`sample_max=False`): the torch step loop `_sample_loop` on
+    either device, as the reference runs its XLA loop; its step is the
+    core's, or with `weight_quant='int8'` the core on int8 weights
+    (`models/quant.py`). K1 refuses both knobs, as the reference's
+    kernel does.
   * `sample_beam`, diverse-group beam search: plain torch on either
     device (the reference runs it as XLA, with no kernel of its own),
     one `DynamicCore` step a group and time step.
@@ -38,6 +41,7 @@ from ekaid_torch.models.greedy_decode import decode_weights, greedy_decode
 from ekaid_torch.models.layers import (DenseT, LSTMCell, apply_mask,
                                        dropout, normal_table)
 from ekaid_torch.utils.dtypes import F32, Policy
+from ekaid_torch.utils.platform import resolve_decode_kernel
 
 #: the POS head's dropout rate on its logits (a constant of the model)
 POS_DROPOUT = 0.5
@@ -275,43 +279,67 @@ class DynamicSpeaker(nn.Module):
         on), logprobs [B, T] and module_weights [B, T, 3] f32 (rows
         zeroed where seq is 0).
 
-        sample_max: greedy, through `greedy_decode` (K1 on a CUDA
-        tensor; it always stops once every row has ended, and early_exit
-        does not apply). Otherwise multinomial, in plain torch on either
-        device: at step t the token is argmax(gumbel[t] + logp / temp),
-        a categorical draw from the tempered log-probs (Gumbel-max, as
-        the reference's `jax.random.categorical` draws), with logp after
-        the NULL ban at step 0 and the decoding constraint; the logprob
-        kept is the drawn token's un-tempered logp. temperature defaults
-        to cfg.temperature. gumbel [T, B, V] f32: the draws (the tests
-        pass the reference's); else they come from `gen`, a
-        torch.Generator on the model's device. early_exit stops the loop
+        Greedy (sample_max) follows cfg.decode_kernel
+        (`greedy_path`): 'auto' and 'pallas' run `greedy_decode` (K1 on
+        a CUDA tensor, its plain twin on a CPU tensor; it always stops
+        once every row has ended, and early_exit does not apply);
+        'pallas_interpret' runs the plain twin, on CPU tensors only;
+        'xla' runs the torch step loop on either device, argmax token
+        and max logprob a step. Multinomial decodes run the torch loop
+        whatever the name: at step t the token is argmax(gumbel[t] +
+        logp / temp), a categorical draw from the tempered log-probs
+        (Gumbel-max, as the reference's `jax.random.categorical`
+        draws), with logp after the NULL ban at step 0 and the decoding
+        constraint; the logprob kept is the drawn token's un-tempered
+        logp. temperature defaults to cfg.temperature. gumbel [T, B, V]
+        f32: the draws (the tests pass the reference's); else they come
+        from `gen`, a torch.Generator on the model's device.
+
+        The loop's step follows cfg.weight_quant and cfg.fused_core
+        (`_loop_step`). As in the reference, a decode with either knob
+        raises unless decode_kernel is 'xla'. early_exit stops the loop
         once every row has emitted 0: seq and module_weights are those
         of the full loop, and logprobs differ only at the steps after
         the last row ended (0 there; the full loop keeps the later
-        draws' logprobs, as the reference's scan does)."""
-        if sample_max:
+        steps' logprobs, as the reference's scan does)."""
+        if not sample_max:
+            refuse_knobs(self.cfg)
+        elif greedy_path(self.cfg, feat_bef.device) == "kernel":
             fused, feats = self._fused(feat_bef, feat_diff, feat_aft)
             return greedy_decode(self.decode_weights(), self.cfg,
                                  self.policy, fused, feats)
-        return self._sample_multinomial(feat_bef, feat_aft, feat_diff,
-                                        temperature, gumbel, gen, early_exit)
+        return self._sample_loop(feat_bef, feat_aft, feat_diff, sample_max,
+                                 temperature, gumbel, gen, early_exit)
+
+    def _loop_step(self):
+        """The torch loop's step: the core on int8 weights when
+        weight_quant is 'int8' (made once per decode call), else the core
+        itself. fused_core takes the core too: the reference's merged
+        step-start products are a TPU scheduling choice over the same
+        parameters and math, which moves only the order of the f32
+        sums."""
+        if self.cfg.weight_quant == "int8":
+            from ekaid_torch.models.quant import make_quant_core_step
+            return make_quant_core_step(self.core, self.policy)
+        return self.core
 
     @torch.no_grad()
-    def _sample_multinomial(self, feat_bef, feat_aft, feat_diff,
-                            temperature, gumbel, gen, early_exit):
+    def _sample_loop(self, feat_bef, feat_aft, feat_diff, sample_max,
+                     temperature, gumbel, gen, early_exit):
         c, p = self.cfg, self.policy
         B, T, V = feat_bef.shape[0], c.seq_length, c.vocab_size
         dev = feat_bef.device
         temp = temperature if temperature is not None else c.temperature
-        if gumbel is None:
-            if gen is None:
-                raise ValueError("multinomial decode needs its draws: "
-                                 "pass gumbel or a torch.Generator gen")
-            gumbel = gumbel_draws((T, B, V), gen)
-        if tuple(gumbel.shape) != (T, B, V):
-            raise ValueError(f"gumbel draws {tuple(gumbel.shape)}, want "
-                             f"{(T, B, V)}")
+        if not sample_max:
+            if gumbel is None:
+                if gen is None:
+                    raise ValueError("multinomial decode needs its draws: "
+                                     "pass gumbel or a torch.Generator gen")
+                gumbel = gumbel_draws((T, B, V), gen)
+            if tuple(gumbel.shape) != (T, B, V):
+                raise ValueError(f"gumbel draws {tuple(gumbel.shape)}, want "
+                                 f"{(T, B, V)}")
+        step = self._loop_step()
         fused, feats = self._fused(feat_bef, feat_diff, feat_aft)
         z = torch.zeros(B, c.rnn_size, dtype=p.compute_dtype, device=dev)
         state = (z, z, z, z)
@@ -324,15 +352,21 @@ class DynamicSpeaker(nn.Module):
         for t in range(T):
             if early_exit and not bool(unfinished.any()):
                 break
-            h_lang, state, dpos, mw = self.core(self._embed_word(it), fused,
-                                                feats, state)
+            h_lang, state, dpos, mw = step(self._embed_word(it), fused,
+                                           feats, state)
             logp = self._out_logprobs(h_lang, dpos)[0]
             if t == 0:
                 logp[:, 0] = -math.inf
             elif c.decoding_constraint:
                 logp = logp.masked_fill(vocab == it[:, None], -math.inf)
-            nxt = torch.argmax(gumbel[t].to(logp.dtype) + logp / temp, -1)
-            lp = logp.gather(1, nxt[:, None])[:, 0]
+            if sample_max:
+                lp = logp.max(-1).values
+                # the lowest index among the maxima, as jnp.argmax
+                nxt = torch.where(logp == lp[:, None], vocab, V).min(-1).values
+            else:
+                nxt = torch.argmax(gumbel[t].to(logp.dtype) + logp / temp,
+                                   -1)
+                lp = logp.gather(1, nxt[:, None])[:, 0]
             unfinished = unfinished & (nxt > 0)
             nxt = nxt * unfinished
             seq[:, t] = nxt.to(torch.int32)
@@ -456,6 +490,36 @@ class DynamicSpeaker(nn.Module):
         return {"seq": g_seqs[0], "logprob": g_ps[0],
                 "group_seqs": torch.stack(g_seqs, dim=1),
                 "group_logprobs": torch.stack(g_ps, dim=1)}
+
+
+def refuse_knobs(cfg) -> None:
+    """Raise, as the reference does for any decode, where weight_quant
+    or fused_core is set with a decode_kernel other than 'xla'."""
+    if resolve_decode_kernel(cfg.decode_kernel) != "xla" and (
+            cfg.weight_quant != "none" or cfg.fused_core):
+        raise ValueError(
+            f"speaker.decode_kernel={cfg.decode_kernel!r} runs the greedy "
+            "kernel, which cannot compose with speaker.weight_quant / "
+            "speaker.fused_core; set speaker.decode_kernel='xla' to decode "
+            "through the torch step loop")
+
+
+def greedy_path(cfg, device: torch.device) -> str:
+    """Where a greedy decode of the speaker config `cfg` on `device`
+    runs: 'loop' (the torch step loop) for decode_kernel 'xla', else
+    'kernel' (`greedy_decode`: K1 on a CUDA device, its plain twin on
+    the CPU). Raises for a knob with a kernel name (`refuse_knobs`) and
+    for 'pallas_interpret' (the plain twin, the reference's CPU debug
+    mode) off the CPU."""
+    kernel = resolve_decode_kernel(cfg.decode_kernel)
+    if kernel == "xla":
+        return "loop"
+    refuse_knobs(cfg)
+    if kernel == "pallas_interpret" and torch.device(device).type != "cpu":
+        raise ValueError("speaker.decode_kernel='pallas_interpret' runs "
+                         "the kernel's plain twin on CPU tensors only; "
+                         f"this decode is on {device}")
+    return "kernel"
 
 
 def gumbel_draws(shape, gen: torch.Generator) -> torch.Tensor:

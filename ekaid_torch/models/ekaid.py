@@ -111,8 +111,10 @@ class EkaidModel(nn.Module):
                early_exit: bool = True) -> Dict[str, torch.Tensor]:
         """Eval/inference path: the encoder's outputs plus seq, logprobs
         and module_weights of `DynamicSpeaker.sample` (greedy by
-        default; sample_max=False draws multinomially, with the draws
-        from gumbel or gen)."""
+        default, through the kernel K1 or, with speaker.decode_kernel
+        'xla', the torch step loop; sample_max=False draws
+        multinomially in the loop, with the draws from gumbel or
+        gen)."""
         enc = self.encode(batch)
         dec = self.speaker.sample(enc["feat_bef"], enc["feat_aft"],
                                   enc["feat_diff"], sample_max=sample_max,

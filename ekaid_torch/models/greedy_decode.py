@@ -266,10 +266,17 @@ def decode_weights(speaker, cfg, policy: Policy) -> Dict[str, torch.Tensor]:
 
 
 def _check_knobs(cfg):
+    # Both knobs rewrite the step of the reference's XLA loop, and its
+    # Pallas kernel refuses them; K1 does too. int8 weights in K1 would be
+    # a feature the reference lacks, and fused_core's merged products are
+    # what K1's phases already do (its first phase runs the module LSTM's
+    # products, pos1 and the language LSTM's xt and h products: k1).
     if cfg.weight_quant != "none" or cfg.fused_core:
         raise ValueError(
             "the greedy decode kernel replaces the whole decode loop and "
-            "cannot compose with speaker.weight_quant / speaker.fused_core")
+            "cannot compose with speaker.weight_quant / speaker.fused_core; "
+            "set speaker.decode_kernel='xla' to decode through the torch "
+            "step loop")
 
 
 def _gates(z, c_prev, dt):

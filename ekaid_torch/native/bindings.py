@@ -1,0 +1,246 @@
+"""ctypes bindings of the port's native host library (counterpart of
+`ekaid_tpu/native/bindings.py`).
+
+`graph.cpp` (the spatial adjacency), `gather.cpp` (the threaded row
+gather of `data/pipeline.py::_RawRows`) and `caption.cpp` (ROUGE-L's LCS
+and BLEU's clipped counts, each over a whole eval in one call) are
+compiled together by g++ (`CXX` overrides it) into one shared
+library under `build/ekaid_torch/native/` at the repository root, on
+first use. The library is named by a hash of the three sources, the
+flags, the compiler's `--version` and the host CPU's model and flags
+(`-march=native` makes it host-specific). Concurrent first uses (test
+workers, loader threads) build once: the build runs under a file lock
+into a temporary file that `os.replace` puts in place. A failed build
+raises with the compiler's message; nothing falls back quietly. The
+numpy and Python versions stay in their modules as the plain versions,
+and each caller reaches this module through `native()`, which the tests
+replace to run them.
+
+    python -m ekaid_torch.native.bindings      # build, print the path
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import platform
+import subprocess
+import sys
+import tempfile
+import threading
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+SRC = Path(__file__).resolve().parent
+SOURCES = (SRC / "graph.cpp", SRC / "gather.cpp", SRC / "caption.cpp")
+BUILD = SRC.parent.parent / "build" / "ekaid_torch" / "native"
+FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-pthread",
+         "-shared")
+GATHER_THREADS = max(1, min(8, os.cpu_count() or 1))
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+
+
+def compiler() -> str:
+    return os.environ.get("CXX", "g++")
+
+
+def host_cpu() -> str:
+    """The host CPU's vendor, family, model, stepping, model name and
+    sorted feature flags (the first processor of /proc/cpuinfo), or the
+    platform's machine and processor names where that file is absent."""
+    parts = []
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break                        # end of the first CPU
+                key, _, val = line.partition(":")
+                key, val = key.strip(), val.strip()
+                if key in ("vendor_id", "cpu family", "model", "stepping",
+                           "model name"):
+                    parts.append(f"{key}={val}")
+                elif key == "flags":
+                    parts.append("flags=" + " ".join(sorted(val.split())))
+    except OSError:
+        pass
+    return "|".join(parts) or f"{platform.machine()}|{platform.processor()}"
+
+
+def _key(cxx: str) -> str:
+    """Hash of what the library is built from and for."""
+    try:
+        version = subprocess.run([cxx, "--version"], capture_output=True,
+                                 text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError) as e:
+        raise RuntimeError(f"native library: compiler {cxx!r} does not "
+                           f"run: {e}") from e
+    h = hashlib.sha256()
+    for f in SOURCES:
+        h.update(f.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    h.update(version.encode())
+    h.update(host_cpu().encode())
+    return h.hexdigest()[:16]
+
+
+def build(build_dir: Path = BUILD) -> Path:
+    """The library for this host, compiled into `build_dir` unless one
+    built from the same inputs is there."""
+    cxx = compiler()
+    lib = Path(build_dir) / f"libekaid_native-{_key(cxx)}.so"
+    if lib.exists():
+        return lib
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    with open(lib.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.exists():                         # built while we waited
+            return lib
+        fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=lib.parent)
+        os.close(fd)
+        proc = subprocess.run([cxx, *FLAGS, "-o", tmp,
+                               *map(str, SOURCES)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"native library: {cxx} failed "
+                               f"({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, lib)
+    return lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    i64 = ctypes.c_int64
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    signatures = {
+        "spatial_adjacency_batch": ([f32p, i64, i64, i64, ctypes.c_float,
+                                     ctypes.c_float, i32p], None),
+        "lcs_len_batch": ([i32p, i64p, i64, i64p], None),
+        "bleu_counts_batch": ([i32p, i64p, i64p, i64, i64, i64p, i64p],
+                              None),
+        "gather_rows": ([ctypes.c_void_p, i64p, i64, i64, ctypes.c_void_p,
+                         i64], None),
+        "gather_rows_i64_i32": ([ctypes.c_void_p, i64p, i64, i64, i32p,
+                                 i64], None),
+    }
+    for name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The library's ctypes handle, built on first use (raises when the
+    build fails)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(str(build())))
+        return _lib
+
+
+def native():
+    """This module with its library loaded: what the callers' native
+    branches call (the tests replace a caller's reference to it with
+    `lambda: None` to run the plain version)."""
+    load()
+    return sys.modules[__name__]
+
+
+# ------------------------------------------------------------- the graph ---
+
+def spatial_adjacency_batch(boxes: np.ndarray, pad: int = 100,
+                            img_w: float = 1024.0, img_h: float = 1024.0
+                            ) -> np.ndarray:
+    """boxes [N, R, 4] (or [R, 4]) float32 -> [N, pad, pad] int32
+    adjacency labels (`ops/graph.py::spatial_adjacency` of each image,
+    padded to `pad`)."""
+    boxes = np.ascontiguousarray(boxes, np.float32)
+    if boxes.ndim == 2:
+        boxes = boxes[None]
+    n, r = boxes.shape[0], boxes.shape[1]
+    if boxes.shape[2:] != (4,) or r > pad:
+        raise ValueError(f"boxes {boxes.shape}: want [N, R <= {pad}, 4]")
+    out = np.zeros((n, pad, pad), np.int32)
+    load().spatial_adjacency_batch(boxes, n, r, pad, img_w, img_h, out)
+    return out
+
+
+# ------------------------------------------------------------ the gather ---
+
+def _check_gather(starts, rowlen, out, dtype):
+    if out.dtype != dtype or not out.flags.c_contiguous or out.shape != (
+            len(starts), rowlen):
+        raise ValueError(f"out {out.dtype} {out.shape}: want a contiguous "
+                         f"{np.dtype(dtype)} [{len(starts)}, {rowlen}]")
+
+
+def gather_rows(base_addr: int, starts: np.ndarray, rowbytes: int,
+                out: np.ndarray) -> bool:
+    """out[i] = the `rowbytes` bytes at base_addr + starts[i], on
+    GATHER_THREADS threads without the GIL. The caller keeps the mapping
+    at base_addr alive across the call and the rows inside it."""
+    starts = np.ascontiguousarray(starts, np.int64)
+    _check_gather(starts, rowbytes, out, np.uint8)
+    load().gather_rows(base_addr, starts, len(starts), rowbytes,
+                       out.ctypes.data, GATHER_THREADS)
+    return True
+
+
+def gather_rows_i64_i32(base_addr: int, starts: np.ndarray, rowelems: int,
+                        out: np.ndarray) -> bool:
+    """gather_rows of int64 rows of `rowelems` elements, narrowed to
+    int32 in the same pass (the reference's adjacency dtype)."""
+    starts = np.ascontiguousarray(starts, np.int64)
+    _check_gather(starts, rowelems, out, np.int32)
+    load().gather_rows_i64_i32(base_addr, starts, len(starts), rowelems,
+                               out, GATHER_THREADS)
+    return True
+
+
+# ------------------------------------------------------- caption metrics ---
+
+def _pack(groups):
+    """Groups of token lists -> (int32 ids, int64 offsets over the
+    lists): list k is ids[off[k]:off[k + 1]], and the ids number each
+    group's distinct tokens in order of first sight."""
+    flat, lens = [], [0]
+    for group in groups:
+        ids = {}
+        for toks in group:
+            flat.extend([ids.setdefault(w, len(ids)) for w in toks])
+            lens.append(len(toks))
+    return np.array(flat, np.int32), np.cumsum(lens, dtype=np.int64)
+
+
+def lcs_len_batch(pairs) -> np.ndarray:
+    """LCS lengths [n] int64 of the (a, b) token-list pairs (ROUGE-L's
+    DP), in one call."""
+    ids, off = _pack(pairs)
+    out = np.zeros(len(pairs), np.int64)
+    load().lcs_len_batch(ids, off, len(pairs), out)
+    return out
+
+
+def bleu_counts_batch(segments, max_n: int = 4):
+    """Clipped n-gram (matches, totals) [n, max_n] int64 of each segment
+    [candidate, *references] (token lists), in one call."""
+    ids, off = _pack(segments)
+    seg = np.cumsum([0] + [len(s) for s in segments], dtype=np.int64)
+    matches = np.zeros((len(segments), max_n), np.int64)
+    totals = np.zeros((len(segments), max_n), np.int64)
+    load().bleu_counts_batch(ids, off, seg, len(segments), max_n, matches,
+                             totals)
+    return matches, totals
+
+
+if __name__ == "__main__":
+    print(build())

@@ -26,6 +26,7 @@ import argparse
 import json
 import os
 import random
+import sys
 import threading
 import time
 from collections import OrderedDict
@@ -61,6 +62,9 @@ class InferenceEngine:
         self.image_dir = image_dir
         cast_params_for_inference(self.model, self.model.policy)
         self.device = self.model.device
+        self.decode_kernel = self.model.cfg.speaker.decode_kernel
+        print(f"engine: speaker.decode_kernel {self.decode_kernel!r} on "
+              f"{self.device}", file=sys.stderr)
         self._dev_cache: "OrderedDict[int, Dict[str, torch.Tensor]]" = \
             OrderedDict()
         self._dev_cache_lock = threading.Lock()

@@ -387,8 +387,8 @@ def main(argv=None):
 
     signal.signal(signal.SIGTERM, _shutdown)
     signal.signal(signal.SIGINT, _shutdown)
-    print(f"serving on http://{a.host}:{server.server_address[1]}",
-          flush=True)
+    print(f"serving on http://{a.host}:{server.server_address[1]} "
+          f"(speaker.decode_kernel {engine.decode_kernel!r})", flush=True)
     server.serve_forever()
     server.server_close()
     if hasattr(engine, "drain"):

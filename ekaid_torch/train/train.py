@@ -29,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 from typing import Dict, Optional
 
@@ -49,6 +50,7 @@ from ekaid_torch.utils.checkpoint import CheckpointManager
 from ekaid_torch.utils.device import host_to_device, resolve_device
 from ekaid_torch.utils.dtypes import Policy
 from ekaid_torch.utils.logging import MetricsLogger
+from ekaid_torch.utils.platform import resolve_decode_kernel
 
 __all__ = ["Trainer", "build_synthetic_trainer", "build_trainer",
            "identity_vocab", "main", "ss_prob_for_epoch"]
@@ -84,9 +86,13 @@ class Trainer:
                 "port trains on one device")
         self.workdir = workdir
         os.makedirs(workdir, exist_ok=True)
-        # the answer vocabulary's size comes from the data
-        self.cfg = cfg = cfg.replace(
-            speaker=cfg.speaker.replace(vocab_size=vocab.size))
+        # the answer vocabulary's size comes from the data; the decode
+        # kernel's name is resolved here, once ('auto' -> 'pallas')
+        kernel = resolve_decode_kernel(cfg.speaker.decode_kernel)
+        print(f"speaker.decode_kernel {cfg.speaker.decode_kernel!r} -> "
+              f"{kernel!r}", file=sys.stderr)
+        self.cfg = cfg = cfg.replace(speaker=cfg.speaker.replace(
+            vocab_size=vocab.size, decode_kernel=kernel))
         cfg.to_json(os.path.join(workdir, "cfg.json"))
         self.vocab = vocab
         self.train_ds = train_ds

@@ -57,7 +57,7 @@ def test_port_imports_no_jax_and_no_reference_package(probe):
                  "data.detection", "metrics.detection", "data.images",
                  "data.preprocess", "tools.torch_convert", "tools.pipeline",
                  "utils.observability", "viz.draw", "viz.ask",
-                 "viz.examples"):
+                 "viz.examples", "models.quant", "native.bindings"):
         assert f"ekaid_torch.{name}" in probe["modules"], name
     assert probe["loaded"] == []
 

@@ -148,3 +148,43 @@ def test_banned_tokens_stay_banned_under_any_draw(setup):
     again = to_np(port.decode(batch, sample_max=False, gumbel=draws)["seq"])
     np.testing.assert_array_equal(again[:, 0], first[:, 0])
     assert (again[:, 1] != again[:, 0]).all()
+
+
+#: the reference's mid dims (tests/test_model.py), at which every large
+#: core matrix crosses QUANT_MIN_ELEMS and is stored int8
+MID_SPEAKER = dict(input_dim=256, rnn_size=128, embed_dim=256,
+                   embed_input_dim=768)
+#: int8 decodes against the reference's: logprobs on the equal prefix
+QUANT_LP_TOL = 1e-4
+
+
+def test_int8_multinomial_matches_jax():
+    """weight_quant='int8' reaches the multinomial decode: at the mid
+    dims the port's tokens equal the reference's on its Gumbel draws,
+    and the logprobs agree within QUANT_LP_TOL (an unquantized step
+    misses them by the int8 rounding, ~1e-3)."""
+    from ekaid_tpu.models.decoder import DynamicSpeaker as JaxSpeaker
+    from ekaid_torch.models.decoder import DynamicSpeaker
+
+    cfg = tiny_cfg()
+    cfg = cfg.replace(speaker=cfg.speaker.replace(
+        weight_quant="int8", decode_kernel="xla", **MID_SPEAKER))
+    sp = cfg.speaker
+    rng = np.random.default_rng(21)
+    fb, fa, fd = (rng.standard_normal((B, sp.input_dim)).astype(np.float32)
+                  for _ in range(3))
+    flax = JaxSpeaker(sp, policy=JF32)
+    tree = init_flax(flax, *map(jnp.asarray, (fb, fa, fd)),
+                     sample_max=True, method="sample")
+    key = jax.random.PRNGKey(4)
+    want = flax.apply(jax.tree.map(jnp.asarray, tree),
+                      *map(jnp.asarray, (fb, fa, fd)), sample_max=False,
+                      rng=key, method="sample")
+    port = load_flax_params(DynamicSpeaker(port_cfg(cfg).speaker), tree)
+    draws = jax_draws(key, sp.seq_length, sp.vocab_size)
+    got = port.sample(*map(torch.from_numpy, (fb, fa, fd)),
+                      sample_max=False, gumbel=torch.from_numpy(draws))
+    np.testing.assert_array_equal(to_np(got["seq"]), np.asarray(want["seq"]))
+    np.testing.assert_allclose(to_np(got["logprobs"]),
+                               np.asarray(want["logprobs"]),
+                               atol=QUANT_LP_TOL, rtol=0)
