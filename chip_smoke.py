@@ -216,6 +216,39 @@ Phases, each fatal on failure:
      assembly ms, the caption metrics' seconds and BLEU + ROUGE-L's
      (the metrics with native parts), native and plain. K1's launches
      here add to its `kernels` entry.
+ 15. the last modules of the port: (a) mode0 (pixels in) at flagship
+     widths, bf16, R101-GN over M0_SIZE^2 synthetic grayscale images
+     (`mode0_trainer`): M0_TRAIN_STEPS train steps at batch M0_B (step
+     ms, peak memory, losses finite), one eval batch, then the
+     `InferenceEngine`: encode + K1 decode of B=M0_B timed (pairs/s) and
+     M0_ANSWERS batch-1 answers (median ms); K1's launches must equal
+     the decodes (15a and 15b's live ones); gates outside the count: the
+     bf16 step-0 tokens equal the plain decode's, and at f32 with TF32
+     off the card's encoder outputs on M0_GATE_ROWS rows within
+     M0_ENC_RTOL of the largest magnitude of the CPU's, and K1 on them
+     equal to its plain version under the near-tie rule; (b) the
+     serving artifact exported from 15a's engine (batch 1 and
+     COALESCE), then two fresh processes (`startup_child`): cold, with
+     an empty kernel build directory (nvcc must run), and from the
+     artifact (no nvcc process may start, the build directory stays
+     empty); the seconds from the spawn to the first answer of each;
+     the artifact's batch-1 and coalesced decodes of STARTUP_ITEMS
+     questions bit-equal to the live engine's (both on the full-width
+     wire); (c) a `torch.distributed` group of one process (NCCL),
+     in-process: one DDP f32 step at TRAIN_B equal to the plain step
+     (loss within TRAIN_LOSS_RTOL, each gradient within TRAIN_GRAD_TOL
+     of the tensor's largest magnitude; bit-equal tensors recorded),
+     both timed in turns; the trainer in DDP for 2 steps with a
+     snapshot and an eval (K1 once); the extraction runner's `--dp 1`
+     records bit-equal to `--dp 0`'s over DP_IMAGES images (images/s
+     from the runner's own line, K2 twice a batch), `--dp` above the
+     visible devices refused; (d) the native `match_disease` equal to
+     `match_disease_to_anatomy` on phase 8's dispatched batch (as
+     detected, with every detection counted valid, and with the next
+     image's anatomy boxes as the detections) and
+     `exact_match` equal to the plain comparison on phase 11a's
+     answers. K1's and K2's launches here add to their `kernels`
+     entries.
 Prints one `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}, after a `record:` line with every number
 as JSON. Without a CUDA device, or outside the repository, it exits
@@ -316,6 +349,18 @@ INT8_B = 8                         # 14c: the card-vs-CPU int8 decode
 LOOP_LP_GATE = 1e-4                # 14b-d: logprobs of the equal prefix
 GATHER_ROWS = 1000                 # 14e: rows of the memmap
 CAPTION_TOL = 1e-12                # 14e: caption scores, native vs Python
+M0_B = 64                          # 15a: the flagship batch
+M0_SIZE = 128                      # the reference's mode0 images: 128^2
+M0_POOL = 256                      # synthetic images (feature_idx < 256)
+M0_GATE_ROWS = 4                   # 15a: f32 card vs CPU
+M0_ENC_RTOL = 1e-3                 # of each output's largest magnitude
+M0_DECODE_REPS = 5
+M0_ANSWERS = 10
+M0_TRAIN_STEPS = 4
+COALESCE = 16                      # 15b: the exported coalescing batch
+STARTUP_ITEMS = 4                  # 15b: answers compared bit for bit
+STARTUP_TIMEOUT_S = 420
+DP_IMAGES = 24                     # 15c: three batches of 8 at 1024^2
 
 
 def log(msg: str) -> None:
@@ -3990,6 +4035,570 @@ def knobs_phase(rec: dict, cfg, m16, batch, engine, keep: dict,
     return k1
 
 
+# ---- phase 15: the last modules of the port --------------------------------
+
+def mode0_config(cfg):
+    """`cfg` in the pixels-in mode0: both knobs set, the seed SEED."""
+    return cfg.replace(data=cfg.data.replace(feature_mode="mode0"),
+                       train=cfg.train.replace(setting="mode0", seed=SEED))
+
+
+def mode0_images(size: int):
+    """M0_POOL synthetic grayscale images [M0_POOL, size, size] in [0, 1)
+    from the seed."""
+    import numpy as np
+    return np.random.default_rng(SEED).random((M0_POOL, size, size),
+                                              dtype=np.float32)
+
+
+def mode0_trainer(cfg, workdir: str, device: str, size: int):
+    """A `Trainer` on the synthetic corpus in mode0, each dataset's
+    `image_loader` reading the pool of `mode0_images(size)`."""
+    from ekaid_torch.data.pipeline import synthetic_dataset
+    from ekaid_torch.data.vocab import identity_vocab
+    from ekaid_torch.train.train import Trainer
+    pool = mode0_images(size)
+    sets = []
+    for split in ("train", "test"):
+        ds = synthetic_dataset(cfg, split, n_pairs=512)
+        ds.image_loader = lambda i: pool[i % len(pool)]
+        sets.append(ds)
+    return Trainer(cfg, workdir, sets[0], sets[1],
+                   identity_vocab(cfg.speaker.vocab_size), device=device)
+
+
+def startup_items(ds, n: int = STARTUP_ITEMS) -> list:
+    """(pair index, question text) pairs the 15b answers are held on."""
+    idxs = [int(i) for i in ds.split_idxs[:n]]
+    texts = ["what has changed", "is there a change in the left lung", None,
+             "w5 w9 what"]
+    return [(i, texts[k % len(texts)]) for k, i in enumerate(idxs)]
+
+
+def answer_digests(engine, items, coalesced=None) -> dict:
+    """Each item's batch-1 decode (seq, and a digest of its logprobs and
+    module weights) through `engine`, and the items' coalesced decode
+    through `coalesced` (a CoalescingEngine) when given."""
+    import hashlib
+
+    def digest(out, rows):
+        h = hashlib.sha256()
+        for k in ("seq", "logprobs", "module_weights"):
+            h.update(out[k][:rows].detach().cpu().contiguous().numpy()
+                     .tobytes())
+        return {"seq": out["seq"][:rows].cpu().numpy().tolist(),
+                "sha": h.hexdigest()}
+
+    qids = [engine.question_to_ids(q) if q else None for _, q in items]
+    r = {"b1": []}
+    for (idx, _), q in zip(items, qids):
+        with engine._decode_lock:
+            out = engine._decode1(engine.model, engine._batch_for(idx, q))
+        r["b1"].append(digest(out, 1))
+    if coalesced is not None:
+        out = coalesced._decode_on(coalesced.devices[0],
+                                   *coalesced._gather_rows(
+                                       list(zip([i for i, _ in items],
+                                                qids))))
+        r["coalesced"] = digest(out, len(items))
+    return r
+
+
+def startup_child(mode: str, art_dir: str, build_dir: str, workdir: str,
+                  cfg_json: str, size: str, device: str = "cuda") -> None:
+    """15b, in a fresh interpreter: build the mode0 trainer of the config
+    at `cfg_json` (images size^2) and serve its first answer, 'cold'
+    (the kernels built by nvcc into the empty `build_dir`) or from the
+    artifact at `art_dir` (`build_dir` empty too). Prints one JSON line:
+    the wall clock at start and at the first answer, the nvcc processes
+    started, the answers of `startup_items` (artifact only)."""
+    t_start = time.time()
+    nvcc_runs = []
+    real_init = subprocess.Popen.__init__
+
+    def watch(self, args, *a, **k):
+        argv = [args] if isinstance(args, (str, bytes)) else list(args)
+        if argv and "nvcc" in os.path.basename(str(argv[0])):
+            nvcc_runs.append(" ".join(map(str, argv[:2])))
+        return real_init(self, args, *a, **k)
+
+    subprocess.Popen.__init__ = watch
+    sys.path.insert(0, str(ROOT))
+    from ekaid_torch import kernels
+    from ekaid_torch.config import load_config
+    kernels.BUILD = Path(build_dir)
+    from ekaid_torch.serving.artifact import load_artifact
+    from ekaid_torch.serving.engine import InferenceEngine
+    from ekaid_torch.serving.server import CoalescingEngine
+    with open(cfg_json) as f:
+        cfg = load_config(overrides=json.load(f))
+    tr = mode0_trainer(cfg, workdir, device, int(size))
+    art = load_artifact(art_dir, device) if mode == "artifact" else None
+    engine = InferenceEngine(tr, artifact=art)
+    idx, text = startup_items(tr.eval_ds, 1)[0]
+    first = engine.answer(text or "what has changed", idx)
+    t_first = time.time()
+    out = {"mode": mode, "t_start": t_start, "t_first": t_first,
+           "first_answer": first["answer"], "nvcc_runs": nvcc_runs,
+           "build_dir_files": sorted(os.listdir(build_dir))}
+    if art is not None:
+        co = CoalescingEngine(tr, coalesce_batch=max(
+            art.meta["batch_sizes"]), artifact=art)
+        out["answers"] = answer_digests(engine, startup_items(tr.eval_ds),
+                                        co)
+    print(json.dumps(out), flush=True)
+
+
+def run_startup(mode: str, art_dir, build_dir, workdir, cfg_json,
+                device: str = "cuda") -> dict:
+    """`startup_child` in a fresh interpreter; its JSON line, with the
+    seconds from the spawn to its first answer."""
+    Path(build_dir).mkdir(parents=True, exist_ok=True)
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke;"
+            " chip_smoke.startup_child(*sys.argv[2:])")
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(ROOT), mode, str(art_dir),
+         str(build_dir), str(workdir), str(cfg_json), str(M0_SIZE), device],
+        capture_output=True,
+        text=True, timeout=STARTUP_TIMEOUT_S, cwd=str(ROOT))
+    if proc.returncode != 0:
+        raise AssertionError(f"15b {mode} start failed ({proc.returncode}):"
+                             f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    r = json.loads(proc.stdout.strip().splitlines()[-1])
+    r["first_answer_s"] = r["t_first"] - t0
+    r["interpreter_s"] = r["t_start"] - t0
+    return r
+
+
+def mode0_phase(rec: dict, cfg, keep: dict, device: str = "cuda") -> int:
+    """15a and 15b. Returns K1's launches on the path."""
+    import shutil
+    import torch
+    from ekaid_torch.models import decoder
+    from ekaid_torch.models import greedy_decode as gd
+    from ekaid_torch.models.ekaid import EkaidModel
+    from ekaid_torch.serving.artifact import save_artifact
+    from ekaid_torch.serving.engine import InferenceEngine
+    from ekaid_torch.serving.server import CoalescingEngine
+    from ekaid_torch.utils.dtypes import F32
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    work = ROOT / "build" / "phase15"
+    shutil.rmtree(work, ignore_errors=True)
+    r = rec["mode0"] = {}
+    cfg0 = mode0_config(cfg)
+    cfg0 = cfg0.replace(train=cfg0.train.replace(
+        max_iter=M0_TRAIN_STEPS, snapshot_interval=10 ** 9, log_interval=1))
+
+    # ---- 15a. the main path: train, evaluate, serve, decode -------------
+    t_phase = time.perf_counter()
+    k1 = decoder.greedy_decode
+    k1.launches = 0
+    decodes = 0
+    tr = mode0_trainer(cfg0, str(work / "trainer"), device, M0_SIZE)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    tr.step_seconds = []
+    tr.train()
+    sync()
+    from ekaid_torch.utils.logging import read_metrics
+    losses = [m["train/total_loss"] for m in read_metrics(tr.workdir)
+              if "train/total_loss" in m]
+    r["train_step_ms"] = statistics.median(tr.step_seconds[1:]) * 1e3
+    r["train_step_ms_all"] = [s * 1e3 for s in tr.step_seconds]
+    r["train_pairs_per_s"] = M0_B / (r["train_step_ms"] / 1e3)
+    r["train_peak_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                           if cuda else None)
+    r["train_losses"] = losses
+    if tr.state.step != M0_TRAIN_STEPS or len(losses) != M0_TRAIN_STEPS \
+            or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"15a: {tr.state.step} steps, losses {losses}")
+    scores, preds = tr.evaluate(max_batches=1)
+    decodes += 1
+    r["eval_answers"] = len(preds)
+    engine = InferenceEngine(tr)                 # casts the model for eval
+    decodes += 1
+    m16 = engine.model
+    ds = tr.train_ds
+    batch = ds.sample_batch(ds.split_idxs[:M0_B])
+    dev = m16.tensors(batch)
+    out = m16.decode(dev)
+    decodes += 1
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(M0_DECODE_REPS):
+        out = m16.decode(dev)
+        out["seq"].cpu()
+    r["decode_pairs_per_s"] = M0_DECODE_REPS * M0_B / (
+        time.perf_counter() - t0)
+    decodes += M0_DECODE_REPS
+    m16.encode(dev)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(M0_DECODE_REPS):
+        m16.encode(dev)
+    sync()
+    r["encode_b64_ms"] = (time.perf_counter() - t0) / M0_DECODE_REPS * 1e3
+    idxs = tr.eval_ds.split_idxs
+    lat = []
+    for i in range(M0_ANSWERS):
+        idx = int(idxs[i % len(idxs)])
+        a = engine.answer(tr.vocab.decode(tr.eval_ds.questions[idx]), idx)
+        lat.append(a["latency_ms"])
+    decodes += M0_ANSWERS
+    r["b1_latency_ms_median"] = statistics.median(lat)
+    if tuple(out["seq"].shape) != (M0_B, cfg0.speaker.seq_length) or not \
+            torch.isfinite(out["logprobs"].float()).all():
+        raise AssertionError(f"15a: decode seq {tuple(out['seq'].shape)}")
+    if tuple(out["att_bef"].shape) != (M0_B, 1, (M0_SIZE // 32) ** 2):
+        raise AssertionError(f"15a: att_bef {tuple(out['att_bef'].shape)}")
+
+    # ---- 15b. the serving artifact (its live decodes are on the path) ---
+    art_dir = work / "artifact"
+    items = startup_items(tr.eval_ds)
+    t0 = time.perf_counter()
+    save_artifact(str(art_dir), m16, {
+        k: v for k, v in tr.eval_ds.sample(int(idxs[0])).items()
+        if k != "pair_index"}, batch_sizes=(1, COALESCE))
+    r["artifact_export_s"] = time.perf_counter() - t0
+    r["artifact_mb"] = sum(f.stat().st_size for f in art_dir.iterdir()) / 1e6
+    engine._wire = dict                          # the artifact's wire
+    engine._dev_cache.clear()
+    co = CoalescingEngine(tr, coalesce_batch=COALESCE)
+    decodes += 3                                 # its three warm-ups
+    co._wire = dict
+    co._dev_cache.clear()
+    live = answer_digests(engine, items, co)
+    decodes += len(items) + 1
+    sync()
+    launches = k1.launches
+    log(f"[15a] mode0 (pixels in, R101-GN, {M0_SIZE}^2, flagship widths, "
+        f"bf16): {M0_TRAIN_STEPS} train steps at B={M0_B}, median "
+        f"{r['train_step_ms']:.1f} ms ({r['train_pairs_per_s']:.1f} pairs "
+        f"trained/s; all {['%.1f' % x for x in r['train_step_ms_all']]}), "
+        f"peak {r['train_peak_gib']} GiB; eval of one batch; "
+        f"encode+decode B={M0_B} {r['decode_pairs_per_s']:.1f} pairs/s "
+        f"(encode {r['encode_b64_ms']:.2f} ms); batch-1 answer median "
+        f"{r['b1_latency_ms_median']:.2f} ms over {M0_ANSWERS}; K1 launches "
+        f"{launches} for {decodes} decodes")
+    if launches != decodes:
+        raise AssertionError(f"15: K1 launched {launches} times for "
+                             f"{decodes} decodes")
+
+    # gates, outside the count: bf16 step-0 tokens, then f32 card vs CPU
+    if not torch.equal(plain_step0(m16, dev), out["seq"][:, 0]):
+        raise AssertionError("15a: bf16 step-0 tokens differ from the plain "
+                             "decode's")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c32 = cfg0.replace(dtypes=cfg0.dtypes.replace(compute_dtype="float32"))
+    rows = {k: v[:M0_GATE_ROWS] for k, v in batch.items()}
+    ntoken = len(tr.vocab.word_to_idx)
+    encs = {}
+    for d in ("cpu", device):
+        m = EkaidModel(c32, ntoken, policy=F32, device=d, seed=SEED)
+        encs[d] = (m, m.encode(rows))
+    m32, e32 = encs[device]
+    gaps = {k: float((e32[k].cpu() - encs["cpu"][1][k]).abs().max()
+                     / encs["cpu"][1][k].abs().max())
+            for k in ("feat_bef", "feat_aft", "feat_diff", "att_bef",
+                      "att_aft", "pred")}
+    r["f32_encoder_gap"] = gaps
+    if max(gaps.values()) > M0_ENC_RTOL:
+        raise AssertionError(f"15a: f32 encoder card vs CPU {gaps}")
+    sp = m32.speaker
+    with torch.no_grad():
+        w = gd.decode_weights(sp, sp.cfg, F32)
+        fused, feats = sp._fused(e32["feat_bef"], e32["feat_diff"],
+                                 e32["feat_aft"])
+        ref = gd.greedy_decode_plain(w, sp.cfg, F32, fused, feats)
+        got = k1(w, sp.cfg, F32, fused, feats)
+    r["f32_k1_vs_plain"] = near_tie_agree(
+        w, sp.cfg, F32, fused, feats, ref, got,
+        rec.get("near_tie_tol", NEAR_TIE_FLOOR), "15a f32 K1")
+    r["f32_k1_lp_err"] = float((got["logprobs"] - ref["logprobs"]).abs()
+                               .max())
+    log(f"      gates: bf16 step-0 tokens equal the plain decode's (B="
+        f"{M0_B}); f32 (TF32 off) encoder card vs CPU on {M0_GATE_ROWS} "
+        f"rows, of max|x|: " + ", ".join(f"{k} {v:.2e}"
+                                         for k, v in gaps.items())
+        + f" (gate {M0_ENC_RTOL}); K1 f32 vs plain on the card's encoder "
+        f"output: rows differing {r['f32_k1_vs_plain']['rows_differ']} "
+        f"(near-tie rule), logprobs err {r['f32_k1_lp_err']:.2e}")
+    del encs, m32, e32
+
+    # 15b: the cold start and the start from the artifact, fresh processes
+    cfg_json = work / "cfg0.json"
+    cfg0.to_json(str(cfg_json))
+    cold = run_startup("cold", art_dir, work / "build_cold",
+                       work / "cold", cfg_json, device)
+    warm = run_startup("artifact", art_dir, work / "build_artifact",
+                       work / "warm", cfg_json, device)
+    r["startup"] = {k: {"first_answer_s": v["first_answer_s"],
+                        "interpreter_s": v["interpreter_s"],
+                        "nvcc_runs": len(v["nvcc_runs"])}
+                    for k, v in (("cold", cold), ("artifact", warm))}
+    if cuda and not cold["nvcc_runs"]:
+        raise AssertionError("15b: the cold start ran no nvcc")
+    if warm["nvcc_runs"] or warm["build_dir_files"]:
+        raise AssertionError(f"15b: the artifact start ran nvcc "
+                             f"{warm['nvcc_runs']} or built "
+                             f"{warm['build_dir_files']}")
+    # (a CPU rehearsal holds the tokens only: CPU reductions may round
+    # differently in another process, with other buffer alignments)
+    same = warm["answers"] == live if cuda else (
+        [x["seq"] for x in warm["answers"]["b1"]] ==
+        [x["seq"] for x in live["b1"]] and
+        warm["answers"]["coalesced"]["seq"] == live["coalesced"]["seq"])
+    if not same:
+        raise AssertionError(f"15b: the artifact's answers differ from the "
+                             f"live engine's on the same inputs: artifact "
+                             f"{warm['answers']}, live {live}")
+    log(f"[15b] artifact ({r['artifact_mb']:.1f} MB, exported in "
+        f"{r['artifact_export_s']:.2f} s, batch sizes 1 and {COALESCE}): "
+        f"seconds to the first answer in a fresh process: cold "
+        f"{cold['first_answer_s']:.2f} s ({len(cold['nvcc_runs'])} nvcc "
+        f"processes: {cold['nvcc_runs']}), from the artifact "
+        f"{warm['first_answer_s']:.2f} s (no nvcc process, build dir "
+        f"empty); its {len(items)} batch-1 answers and their coalesced "
+        f"batch bit-equal to the live engine's (full-width wire on both)")
+    r["phase_s"] = time.perf_counter() - t_phase
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def dp_phase(rec: dict, cfg, device: str = "cuda") -> tuple:
+    """15c. Returns K1's and K2's launches on the path."""
+    import shutil
+    import socket
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ekaid_torch.data.synthetic import synthetic_batch
+    from ekaid_torch.extract import runner
+    from ekaid_torch.models import decoder
+    from ekaid_torch.models.ekaid import EkaidModel
+    from ekaid_torch.ops import roi_kernels as rk
+    from ekaid_torch.parallel import mesh
+    from ekaid_torch.train.step import Forward, init_state, train_step
+    from ekaid_torch.train.train import build_synthetic_trainer
+    from ekaid_torch.utils.dtypes import F32
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    work = ROOT / "build" / "phase15c"
+    shutil.rmtree(work, ignore_errors=True)
+    r = rec["dp"] = {}
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(mesh.backend_for(device),
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        c32 = cfg.replace(dtypes=cfg.dtypes.replace(compute_dtype="float32"))
+        batch = synthetic_batch(c32, TRAIN_B, seed=SEED + 5)
+        ntoken = c32.speaker.vocab_size - 1
+        runs, steps = {}, {}
+        for name in ("plain", "ddp"):
+            model = EkaidModel(c32, ntoken, policy=F32, device=device,
+                               seed=SEED)
+            state = init_state(model, c32.train.optim)
+            ddp = (mesh.wrap(Forward(model), mesh.data_axis(
+                c32.mesh, model.device)) if name == "ddp" else None)
+            m = train_step(state, batch, SEED, c32.train.att_reg_weight,
+                           train=False, ddp=ddp)
+            runs[name] = (float(m["total_loss"]), {
+                n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                if p.grad is not None})
+            steps[name] = (state, ddp, [])
+        for name in ("plain", "ddp", "ddp", "plain"):    # timed in turns
+            state, ddp, secs = steps[name]
+            sync()
+            t0 = time.perf_counter()
+            train_step(state, batch, SEED, c32.train.att_reg_weight,
+                       train=False, ddp=ddp)
+            sync()
+            secs.append(time.perf_counter() - t0)
+        gaps = _grad_gaps(runs["ddp"][1], runs["plain"][1])
+        r["world1_step"] = {
+            "loss_plain": runs["plain"][0], "loss_ddp": runs["ddp"][0],
+            "grad_gap": max(gaps.values()),
+            "bit_equal_tensors": sum(torch.equal(runs["ddp"][1][n], g)
+                                     for n, g in runs["plain"][1].items()),
+            "tensors": len(gaps),
+            "step_ms_plain": [x * 1e3 for x in steps["plain"][2]],
+            "step_ms_ddp": [x * 1e3 for x in steps["ddp"][2]]}
+        del steps
+        w_ = r["world1_step"]
+        if abs(w_["loss_ddp"] - w_["loss_plain"]) > \
+                TRAIN_LOSS_RTOL * abs(w_["loss_plain"]) or \
+                set(runs["ddp"][1]) != set(runs["plain"][1]) or \
+                w_["grad_gap"] > TRAIN_GRAD_TOL:
+            raise AssertionError(f"15c: the DDP step differs from the plain "
+                                 f"step: {w_}")
+        # the trainer in DDP: two steps, a snapshot and an eval (K1)
+        k1 = decoder.greedy_decode
+        k1.launches = 0
+        tcfg = cfg.replace(train=cfg.train.replace(
+            seed=SEED, max_iter=2, snapshot_interval=2, log_interval=1))
+        tr = build_synthetic_trainer(tcfg, str(work / "trainer"),
+                                     device=device)
+        if tr.ddp is None or tr.axis.world != 1:
+            raise AssertionError("15c: the trainer did not wrap DDP")
+        tr.train(eval_fraction=1)
+        sync()
+        k1_launches = k1.launches
+        if tr.state.step != 2 or k1_launches != 1:
+            raise AssertionError(f"15c: DDP trainer steps {tr.state.step}, "
+                                 f"K1 launches {k1_launches} (want 1)")
+        del tr
+    finally:
+        dist.destroy_process_group()
+    log(f"[15c] DDP at world size 1 ({mesh.backend_for(device)}, "
+        f"in-process group): f32 step B={TRAIN_B} loss {w_['loss_ddp']:.7f} "
+        f"vs plain {w_['loss_plain']:.7f}; gradients: largest gap "
+        f"{w_['grad_gap']:.2e} of a tensor's max (gate {TRAIN_GRAD_TOL}), "
+        f"{w_['bit_equal_tensors']} of {w_['tensors']} tensors bit-equal; "
+        f"steps in turns (warm) DDP {['%.1f' % x for x in w_['step_ms_ddp']]}"
+        f" ms, plain {['%.1f' % x for x in w_['step_ms_plain']]} ms; the "
+        f"DDP trainer: 2 steps, a snapshot and an eval (K1 once)")
+
+    # extraction: --dp 1 against --dp 0, then --dp 2 refused
+    import contextlib
+    import io
+    import re
+    rates, sinks = {}, {}
+    rk.multilevel_roi_align_canvas.launches = 0
+    with Patches() as p_:
+        p_.set(runner, "H5Writer", RecordSink)
+        for dp in ("0", "1"):
+            RecordSink.made = []
+            said = io.StringIO()
+            with contextlib.redirect_stdout(said):
+                runner.main(["--synthetic", str(DP_IMAGES), "--allow_random",
+                             "--out", str(work / "graph.h5"), "--device",
+                             device, "--dp", dp])
+            sinks[dp] = RecordSink.made[0].records
+            # the runner's own line: the whole run and its steady window
+            m = re.search(r"at ([0-9.]+) img/s \(steady-state ([0-9.]+)",
+                          said.getvalue())
+            if m is None:
+                raise AssertionError(f"15c: no rate in {said.getvalue()!r}")
+            rates[dp] = (float(m.group(1)), float(m.group(2)))
+    sync()
+    k2 = rk.multilevel_roi_align_canvas.launches
+    det = cfg.detector
+    if k2 != 2 * 2 * DP_IMAGES // det.extract_batch_size:
+        raise AssertionError(f"15c: K2 launches {k2}")
+    if len(sinks["0"]) != DP_IMAGES or len(sinks["1"]) != DP_IMAGES:
+        raise AssertionError("15c: records missing")
+    for i, (a, b) in enumerate(zip(sinks["1"], sinks["0"])):
+        for key in b:
+            if not np.array_equal(a[key], b[key]):
+                raise AssertionError(f"15c: --dp 1 record {i} {key} differs "
+                                     "from --dp 0's")
+    try:
+        runner.main(["--synthetic", str(DP_IMAGES), "--allow_random",
+                     "--out", str(work / "graph.h5"), "--device", device,
+                     "--dp", str(torch.cuda.device_count() + 1 if cuda
+                                 else 2)])
+    except SystemExit as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("15c: --dp above the visible devices ran")
+    if "--dp" not in refusal:
+        raise AssertionError(f"15c: the refusal does not name --dp: "
+                             f"{refusal}")
+    r["extract"] = {f"dp{k}_images_per_s": v for k, v in rates.items()}
+    r["extract"]["k2_launches"] = k2
+    r["extract"]["refusal"] = refusal
+    log(f"[15c] extraction runner --dp 1 records bit-equal to --dp 0's "
+        f"({DP_IMAGES} images at {det.image_size}^2, batch "
+        f"{det.extract_batch_size}): images/s over the run (steady window "
+        f"past the first batch) --dp 1 {rates['1'][0]:.2f} "
+        f"({rates['1'][1]:.2f}), --dp 0 {rates['0'][0]:.2f} "
+        f"({rates['0'][1]:.2f}) (the runner's own host clock); K2 launches "
+        f"{k2}; refused: {refusal!r}")
+    shutil.rmtree(work, ignore_errors=True)
+    return k1_launches, k2
+
+
+def native_match_phase(rec: dict, keep: dict) -> None:
+    """15d: the native `match_disease` and `exact_match` against their
+    plain versions on phase 8's dispatched extraction batch and phase
+    11a's answers."""
+    import numpy as np
+    from ekaid_torch.extract import pipeline as xp
+    from ekaid_torch.native import bindings
+    ana_d, dis_d = keep["dispatched"]
+    ana = {k: xp._host(v) for k, v in ana_d.items()}
+    dis = {k: xp._host(v) for k, v in dis_d.items()}
+    n_img = dis["boxes"].shape[0]
+    bindings.load()                       # built or loaded before timing
+    t_nat = t_py = 0.0
+    assigned = {}
+    # the detections as the detector marked them; every one of them
+    # counted; and, since untrained detectors find little, the next
+    # image's anatomy boxes taken as the detections
+    cases = (("as_detected", dis["boxes"], dis["valid"]),
+             ("all_valid", dis["boxes"], np.ones_like(dis["valid"])),
+             ("next_anatomy", np.roll(ana["boxes"], -1, axis=0),
+              np.ones(ana["boxes"].shape[:2], bool)))
+    for case, boxes, valid in cases:
+        assigned[case] = 0
+        n_dis = boxes.shape[1]
+        for b in range(n_img):
+            t = time.perf_counter()
+            got = bindings.match_disease(boxes[b], valid[b],
+                                         ana["boxes"][b])
+            t_nat += time.perf_counter() - t
+            t = time.perf_counter()
+            _, cls = xp.match_disease_to_anatomy(
+                boxes[b], np.arange(n_dis, dtype=np.float32)[:, None],
+                np.arange(n_dis), valid[b].astype(bool), ana["boxes"][b],
+                n_dis)
+            t_py += time.perf_counter() - t
+            want = np.where(cls >= n_dis, -1, cls)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"15d: match_disease ({case}) image "
+                                     f"{b} differs")
+            assigned[case] += int((got >= 0).sum())
+    gts, preds = keep["captions"]
+    first_gt = {}
+    for ann in gts["annotations"]:
+        first_gt.setdefault(str(ann["image_id"]), ann["caption"])
+    words = {}
+    keys = sorted(preds)
+    rows = [(preds[k].split(), first_gt[k].split()) for k in keys]
+    T = max(max(len(a), len(b)) for a, b in rows) + 1
+    seq = np.zeros((len(rows), T), np.int32)
+    gt = np.zeros((len(rows), T), np.int32)
+    for i, (a, b) in enumerate(rows):
+        seq[i, :len(a)] = [words.setdefault(w, len(words) + 1) for w in a]
+        gt[i, :len(b)] = [words.setdefault(w, len(words) + 1) for w in b]
+    got = bindings.exact_match(seq, gt)
+    want = np.array([preds[k].split() == first_gt[k].split() for k in keys],
+                    np.uint8)
+    if not np.array_equal(got, want):
+        raise AssertionError("15d: exact_match differs from the plain "
+                             "comparison")
+    rec["native_match"] = {
+        "images": n_img, "assigned": assigned,
+        "match_native_ms": t_nat * 1e3, "match_python_ms": t_py * 1e3,
+        "answers": len(rows), "exact": int(got.sum())}
+    log(f"[15d] native match_disease equal to match_disease_to_anatomy on "
+        f"phase 8's batch ({n_img} images x {dis['boxes'].shape[1]} "
+        f"detections; anatomy boxes assigned {assigned['as_detected']} as "
+        f"detected, {assigned['all_valid']} with every detection valid, "
+        f"{assigned['next_anatomy']} with the next image's anatomy boxes "
+        f"as the detections; {t_nat * 1e3:.3f} ms native, "
+        f"{t_py * 1e3:.3f} ms Python, the three cases); exact_match equal "
+        f"to the plain "
+        f"comparison on phase 11a's {len(rows)} answers ({int(got.sum())} "
+        f"exact)")
+
+
 def main() -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -4211,6 +4820,21 @@ def main() -> dict:
     # batch-1 answers with pair_batch off and on ---------------------------
     kernels_line[0]["launches"] += knobs_phase(rec, cfg, m16, batch, engine,
                                                keep)
+
+    # ---- 15. the last modules: mode0 (K1 in its evals, answers and
+    # decodes), the serving artifact, DDP (K1 in the DDP trainer's eval)
+    # and --dp extraction (K2), the native matching ------------------------
+    t15 = time.perf_counter()
+    del engine, m16
+    torch.cuda.empty_cache()
+    kernels_line[0]["launches"] += mode0_phase(rec, cfg, keep)
+    torch.cuda.empty_cache()
+    k1, k2 = dp_phase(rec, cfg)
+    kernels_line[0]["launches"] += k1
+    k2_entry["launches"] += k2
+    native_match_phase(rec, keep)
+    rec["phase15_s"] = time.perf_counter() - t15
+    log(f"[15] {rec['phase15_s']:.1f} s")
     kline = {"kernels": kernels_line}
     log("record: " + json.dumps(rec))
     print(json.dumps(kline))

@@ -5,8 +5,9 @@ names and defaults are the same, so `configs/smoke.yaml` and
 `configs/mimic.yaml` load unchanged. Unknown YAML keys raise; values are
 coerced as the reference does (literal_eval, then type coercion).
 
-Sections the port does not use yet (mesh, the TPU knobs) are kept so
-that every existing YAML file still validates. Of the detector section,
+The mesh's `data` is the size of the data-parallel group (-1: the
+group's size; `parallel/mesh.py`), and its `model` must be 1 (the
+tensor-parallel axis is not ported). Of the detector section,
 the TPU schedule knobs (`s2d_stem`, `roi_group`, `roi_unroll`,
 `rpn_fused_preds`) are accepted and change nothing, since each gives
 the same outputs as its default in the reference; `rpn_topk='approx'`

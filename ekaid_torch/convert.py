@@ -6,8 +6,12 @@ gates (r, z, n); weight-norm {v, g}; norm scale/bias), so the bridge is
 a rename of nested-dict paths to `state_dict()` keys joined by '.'. The
 one change of layout: convolution kernels, the 4-D leaves, go from
 flax's HWIO to torch's OIHW (the detector's stem keeps its [7, 7, C, 64]
-parameter as a 7x7 conv). Every leaf is consumed exactly once; a leaf
-the model lacks, a parameter the tree lacks, or a shape mismatch raises.
+parameter as a 7x7 conv). The mode0 encoder's subtrees map the same way:
+`change_detector/extractor/trunk/...` (the R101's convs and GroupNorms,
+named as the detector's ResNet's), `extractor/fc_reshape` and
+`SSRE/{query,key,value,LayerNorm_0}`. Every leaf is consumed exactly
+once; a leaf the model lacks, a parameter the tree lacks, or a shape
+mismatch raises.
 """
 
 from __future__ import annotations

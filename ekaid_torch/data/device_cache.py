@@ -47,6 +47,9 @@ class DeviceEvalCache:
     """
 
     def __init__(self, dataset, capacity: int = 1024, device="cuda"):
+        if dataset.cfg.data.feature_mode == "mode0":
+            raise ValueError("device cache holds graph features, not raw "
+                             "pixels")
         self.ds = dataset
         self.cap = int(capacity)
         self.device = torch.device(device)

@@ -7,8 +7,9 @@ loader (counterpart of `ekaid_tpu/data/pipeline.py`).
     in-memory arrays;
   * `DiffVQADataset` pairs QA rows with two store lookups and slices
     them by `data.feature_mode` (both / single_ana / single_loc, with
-    the single_loc adjacency block swap); the pixels-in mode0 is refused,
-    as in the model;
+    the single_loc adjacency block swap); in the pixels-in mode0 a
+    sample is the raw image pair from the dataset's `image_loader`,
+    with no graph keys;
   * `Loader` assembles batches of numpy arrays in worker threads, in the
     single-threaded order, with a per-epoch shuffle seed, `skip_next`
     for an exact mid-epoch resume and `pad_final`. The threads build
@@ -228,10 +229,11 @@ class DiffVQADataset:
                  npz_path: Optional[str] = None,
                  splits_path: Optional[str] = None,
                  vocab: Optional[Vocabulary] = None,
-                 arrays: Optional[Dict[str, np.ndarray]] = None):
-        if cfg.data.feature_mode == "mode0":
-            raise NotImplementedError(
-                "feature_mode mode0 (pixels in): not ported")
+                 arrays: Optional[Dict[str, np.ndarray]] = None,
+                 image_loader=None):
+        #: the mode0 (pixels-in) image source: image index -> [H, W]
+        #: float (the reference model's data reads 128^2 PNGs)
+        self.image_loader = image_loader
         self.cfg = cfg
         self.store = store
         self.split = split
@@ -264,13 +266,31 @@ class DiffVQADataset:
         return len(self.split_idxs)
 
     def sample(self, img_idx: int) -> Dict[str, np.ndarray]:
+        if self.cfg.data.feature_mode == "mode0":
+            return self._sample_mode0(img_idx, self.feature_idx[img_idx])
         return self._features_for(img_idx, self.feature_idx[img_idx])
+
+    def _sample_mode0(self, img_idx: int, fi) -> Dict[str, np.ndarray]:
+        """The pixels-in sample: the raw image pair with the labels and
+        the question, and no graph keys."""
+        if self.image_loader is None:
+            raise ValueError("feature_mode=mode0 needs an image_loader "
+                             "(idx -> [H, W])")
+        out = self._labels_for(img_idx)
+        out.update({
+            "d_feats": np.asarray(self.image_loader(int(fi[0])), np.float32),
+            "q_feats": np.asarray(self.image_loader(int(fi[1])), np.float32),
+            "pair_index": np.int64(img_idx),
+            "question": self.questions[img_idx].astype(np.int32)})
+        return out
 
     def sample_batch(self, img_idxs) -> Dict[str, np.ndarray]:
         """Batch assembly: one store.get_batch per image leg and
         broadcast label/mask construction; equal to collating per-sample
-        `sample` calls."""
+        `sample` calls. mode0 collates the per-sample calls."""
         img_idxs = np.asarray(img_idxs, np.int64).ravel()
+        if self.cfg.data.feature_mode == "mode0":
+            return _collate([self.sample(int(i)) for i in img_idxs])
         fi = self.feature_idx[img_idxs]                      # [B, 2]
         d = self.store.get_batch(fi[:, 0])
         q = self.store.get_batch(fi[:, 1])

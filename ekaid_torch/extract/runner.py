@@ -16,12 +16,18 @@ reading PNG/JPG files needs PIL. Trained detector weights come from
 `--ana_ckpt`/`--dis_ckpt`: a detector `.pt` that
 `python -m ekaid_torch.utils.orbax_import detector` wrote, or the
 reference's orbax checkpoint directory where tensorstore is installed.
-Data-parallel extraction (--dp) is not ported yet.
+
+`--dp N` replicates both detectors on the first N local devices; each
+batch is split into N contiguous chunks, one a device, and their
+outputs are joined in order on the first, so the records are those of
+one device (the batch is rounded to a multiple of N). More than the
+visible devices raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import os
 from typing import Iterator, Optional
 
@@ -33,7 +39,7 @@ from ekaid_torch.convert import load_flax_params
 from ekaid_torch.extract.pipeline import Extractor, H5Writer
 from ekaid_torch.models.detector import FasterRCNN
 from ekaid_torch.models.layers import init_params
-from ekaid_torch.utils.device import resolve_device
+from ekaid_torch.utils.device import resolve_device, visible_devices
 from ekaid_torch.utils.dtypes import (Policy, canonical,
                                       cast_params_for_inference)
 from ekaid_torch.utils.orbax_import import is_orbax_dir, load_detector
@@ -83,21 +89,45 @@ def preprocess(images, det, device) -> torch.Tensor:
 
 def build_detector_fns(cfg: Config, ana_params=None, dis_params=None,
                        gen: Optional[torch.Generator] = None,
-                       device="cuda"):
+                       device="cuda", devices: Optional[list] = None):
     """(ana_apply, dis_apply): the anatomy detector's `extract` and the
     disease detector's `detect(max_out=26)` on NHWC image batches, with
-    the detectors of `build_detectors`."""
-    ana, dis = build_detectors(cfg, ana_params, dis_params, gen, device)
-    det, dev = cfg.detector, next(ana.parameters()).device
+    the detectors of `build_detectors`.
+
+    devices: data-parallel replicas, a list of devices (the first is
+    `device`'s place). The detectors are built once and copied to each;
+    a batch, whose size must divide by their number, is split into
+    contiguous chunks, one a replica, and the outputs are concatenated
+    in order on the first device."""
+    devices = [torch.device(d) for d in (devices or [device])]
+    ana, dis = build_detectors(cfg, ana_params, dis_params, gen, devices[0])
+    det = cfg.detector
+    replicas = [(devices[0], ana, dis)] + [
+        (d, copy.deepcopy(ana).to(d), copy.deepcopy(dis).to(d))
+        for d in devices[1:]]
+
+    def run(images, call):
+        n = len(replicas)
+        if len(images) % n:
+            raise ValueError(f"batch {len(images)} must divide over {n} "
+                             "replicas")
+        size = len(images) // n
+        outs = [call(a, d, preprocess(images[i * size:(i + 1) * size],
+                                      det, dev))
+                for i, (dev, a, d) in enumerate(replicas)]
+        if n == 1:
+            return outs[0]
+        return {k: torch.cat([o[k].to(devices[0]) for o in outs])
+                for k in outs[0]}
 
     @torch.no_grad()
     def ana_apply(images):
-        return ana.extract(preprocess(images, det, dev))
+        return run(images, lambda a, d, x: a.extract(x))
 
     @torch.no_grad()
     def dis_apply(images):
-        return dis.detect(preprocess(images, det, dev),
-                          max_out=det.num_anatomy_classes)
+        return run(images, lambda a, d, x: d.detect(
+            x, max_out=det.num_anatomy_classes))
 
     return ana_apply, dis_apply
 
@@ -209,7 +239,8 @@ def main(argv=None):
     p.add_argument("--io_workers", type=int, default=None,
                    help="PNG decode threads (default min(8, cpus))")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel extraction (not ported yet)")
+                   help="data-parallel extraction over N local devices "
+                        "(0: one device)")
     p.add_argument("--shard", default=None, metavar="K/N",
                    help="process every N-th image starting at K")
     p.add_argument("--resume", action="store_true",
@@ -219,10 +250,13 @@ def main(argv=None):
                    help="cuda (default) or cpu")
     a = p.parse_args(argv)
 
+    devices = None
     if a.dp:
-        raise SystemExit("--dp: data-parallel extraction is not ported to "
-                         "ekaid_torch yet; run one process per card with "
-                         "--shard K/N")
+        visible = visible_devices(resolve_device(a.device))
+        if a.dp > len(visible):
+            raise SystemExit(f"--dp {a.dp}: only {len(visible)} device(s) "
+                             f"are visible on {a.device}")
+        devices = visible[:a.dp]
     if not (a.ana_ckpt or a.dis_ckpt or a.allow_random):
         raise SystemExit("no checkpoints given; pass --allow_random to run "
                          "with random detector weights")
@@ -256,12 +290,18 @@ def main(argv=None):
         det = det.replace(stride_in_1x1=True)
     if a.preprocess:
         det = det.replace(preprocess=a.preprocess)
+    if a.dp and det.extract_batch_size % a.dp:
+        nb = max(a.dp, det.extract_batch_size // a.dp * a.dp)
+        print(f"note: batch_size {det.extract_batch_size} -> {nb} "
+              f"to divide --dp {a.dp}")
+        det = det.replace(extract_batch_size=nb)
     cfg = cfg.replace(detector=det)
 
     ana_params = load_detector(a.ana_ckpt) if a.ana_ckpt else None
     dis_params = load_detector(a.dis_ckpt) if a.dis_ckpt else None
     ana_apply, dis_apply = build_detector_fns(cfg, ana_params, dis_params,
-                                              device=a.device)
+                                              device=a.device,
+                                              devices=devices)
     ex = Extractor(ana_apply, dis_apply, det.num_disease_classes)
     run_meta = {"shard": a.shard or "",
                 "image_dir": os.path.abspath(a.image_dir)

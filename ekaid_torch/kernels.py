@@ -7,6 +7,11 @@ is named by a hash of its source, the headers beside it, the nvcc flags
 and the nvcc version, and is reused only while all of them are
 unchanged. Nothing here runs at import time.
 
+A serving artifact (`serving/artifact.py`) carries built libraries to
+a host that need not have nvcc: `source_hash` names what a library was
+built from without asking nvcc, and `load_prebuilt` loads a library at
+a given path in place of `build`, never running nvcc.
+
     python -m ekaid_torch.kernels      # build every kernel, print seconds
 """
 
@@ -57,12 +62,24 @@ def nvcc() -> str:
     return path
 
 
-def _key(name: str, compiler: str) -> str:
-    """Hash of what the library of `name` is built from."""
-    h = hashlib.sha256()
+def _hash_sources(h, name: str) -> None:
     for f in [SOURCES[name], *sorted(CSRC.glob("*.cuh"))]:
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+
+
+def source_hash(name: str) -> str:
+    """Hash of the library of `name`'s source, the headers beside it and
+    the nvcc flags (no nvcc needed)."""
+    h = hashlib.sha256()
+    _hash_sources(h, name)
+    return h.hexdigest()[:16]
+
+
+def _key(name: str, compiler: str) -> str:
+    """Hash of what the library of `name` is built from."""
+    h = hashlib.sha256()
+    _hash_sources(h, name)
     h.update(subprocess.run([compiler, "--version"], capture_output=True,
                             check=True).stdout)
     return h.hexdigest()[:16]
@@ -100,17 +117,40 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
+def _declare(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    lib.ekaid_error_string.argtypes = [ctypes.c_int]
+    lib.ekaid_error_string.restype = ctypes.c_char_p
+    fn, argtypes = ENTRY[name]
+    getattr(lib, fn).argtypes = argtypes
+    getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of one kernel library, built if needed, with its
-    entry point's signature declared."""
+    """The ctypes handle of one kernel library, built if needed (or the
+    one `load_prebuilt` loaded), with its entry point's signature
+    declared."""
     if name not in _libs:
-        lib = ctypes.CDLL(str(build(name)))
-        lib.ekaid_error_string.argtypes = [ctypes.c_int]
-        lib.ekaid_error_string.restype = ctypes.c_char_p
-        fn, argtypes = ENTRY[name]
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-        _libs[name] = lib
+        _libs[name] = _declare(ctypes.CDLL(str(build(name))), name)
+    return _libs[name]
+
+
+def load_prebuilt(name: str, path) -> ctypes.CDLL:
+    """Load the built library of `name` at `path` as the one `load`
+    returns from now on, without nvcc. Raises when the file does not
+    load or lacks the entry point, or when another library of `name` is
+    loaded already."""
+    path = Path(path)
+    if name in _libs:
+        if Path(_libs[name]._name) != path:
+            raise RuntimeError(f"kernel {name}: {_libs[name]._name} is "
+                               f"loaded already; cannot load {path}")
+        return _libs[name]
+    try:
+        _libs[name] = _declare(ctypes.CDLL(str(path)), name)
+    except (OSError, AttributeError) as e:
+        raise RuntimeError(f"kernel {name}: the prebuilt library {path} "
+                           f"does not load: {e}") from e
     return _libs[name]
 
 

@@ -3,7 +3,9 @@ of `ekaid_tpu/models/ekaid.py`).
 
 A batch is a dict of padded arrays (numpy or torch):
 
-  d_feats / q_feats   [B, N, F]   main/reference node features
+  d_feats / q_feats   [B, N, F]   main/reference node features (mode0:
+                                  [B, H, W] images, and no adjacency
+                                  or boxes)
   d_adj / q_adj       [B, P, P]   spatial adjacency labels 0..11
   d_sem_adj / ...     [B, P, P]   semantic adjacency labels 0..2
   d_bb / q_bb         [B, N, 4]   boxes
@@ -33,7 +35,9 @@ from ekaid_torch.utils.dtypes import F32, Policy
 
 _INPUTS = ("d_feats", "q_feats", "d_adj", "q_adj", "d_sem_adj", "q_sem_adj",
            "d_bb", "q_bb", "question")
-_TRAIN_INPUTS = _INPUTS + ("labels", "masks")
+#: the pixels-in mode0 batch: the image pair and the question
+_MODE0_INPUTS = ("d_feats", "q_feats", "question")
+_TRAIN = ("labels", "masks")
 
 
 class EkaidModel(nn.Module):
@@ -66,8 +70,10 @@ class EkaidModel(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         """The model inputs of `batch` (with labels and masks when
         `train`) as tensors on the model's device."""
+        keys = (_MODE0_INPUTS if self.cfg.train.setting == "mode0"
+                else _INPUTS) + (_TRAIN if train else ())
         return {k: torch.as_tensor(batch[k], device=self.device)
-                for k in (_TRAIN_INPUTS if train else _INPUTS)}
+                for k in keys}
 
     def _adjacencies(self, b):
         c = self.cfg.change_detector
@@ -79,6 +85,10 @@ class EkaidModel(nn.Module):
                 broadcast_adjacency(b["q_sem_adj"], c.sem_label_num, n, dt))
 
     def _encode(self, b, gen=None) -> Dict[str, torch.Tensor]:
+        if self.cfg.train.setting == "mode0":
+            return self.change_detector(
+                b["d_feats"], b["q_feats"], None, None, None, None, None,
+                None, b["question"], gen)
         d_adj, q_adj, d_sem, q_sem = self._adjacencies(b)
         return self.change_detector(
             b["d_feats"], b["q_feats"], d_adj, q_adj, d_sem, q_sem,

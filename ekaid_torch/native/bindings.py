@@ -1,7 +1,8 @@
 """ctypes bindings of the port's native host library (counterpart of
 `ekaid_tpu/native/bindings.py`).
 
-`graph.cpp` (the spatial adjacency), `gather.cpp` (the threaded row
+`graph.cpp` (the spatial adjacency, the disease-to-anatomy matching
+and the exact-match comparison of token rows), `gather.cpp` (the threaded row
 gather of `data/pipeline.py::_RawRows`) and `caption.cpp` (ROUGE-L's LCS
 and BLEU's clipped counts, each over a whole eval in one call) are
 compiled together by g++ (`CXX` overrides it) into one shared
@@ -119,9 +120,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     signatures = {
         "spatial_adjacency_batch": ([f32p, i64, i64, i64, ctypes.c_float,
                                      ctypes.c_float, i32p], None),
+        "match_disease": ([f32p, u8p, i64, f32p, i64, i32p], None),
+        "exact_match": ([i32p, i32p, i64, i64, u8p], None),
         "lcs_len_batch": ([i32p, i64p, i64, i64p], None),
         "bleu_counts_batch": ([i32p, i64p, i64p, i64, i64, i64p, i64p],
                               None),
@@ -171,6 +175,40 @@ def spatial_adjacency_batch(boxes: np.ndarray, pad: int = 100,
         raise ValueError(f"boxes {boxes.shape}: want [N, R <= {pad}, 4]")
     out = np.zeros((n, pad, pad), np.int32)
     load().spatial_adjacency_batch(boxes, n, r, pad, img_w, img_h, out)
+    return out
+
+
+def match_disease(dis_boxes: np.ndarray, dis_valid: np.ndarray,
+                  ana_boxes: np.ndarray) -> np.ndarray:
+    """The disease index [n_ana] int32 each anatomy box takes under
+    `extract/pipeline.py::match_disease_to_anatomy`'s greedy rule, -1
+    where none: dis_boxes [n_dis, 4] in score order, dis_valid [n_dis],
+    ana_boxes [n_ana, 4]."""
+    dis_boxes = np.ascontiguousarray(dis_boxes, np.float32)
+    ana_boxes = np.ascontiguousarray(ana_boxes, np.float32)
+    valid = np.ascontiguousarray(dis_valid, np.uint8)
+    if (dis_boxes.ndim != 2 or dis_boxes.shape[1:] != (4,)
+            or ana_boxes.ndim != 2 or ana_boxes.shape[1:] != (4,)
+            or valid.shape != (len(dis_boxes),)):
+        raise ValueError(f"boxes {dis_boxes.shape}, valid {valid.shape}, "
+                         f"anatomy {ana_boxes.shape}: want [n, 4], [n], "
+                         "[m, 4]")
+    out = np.empty(len(ana_boxes), np.int32)
+    load().match_disease(dis_boxes, valid, len(dis_boxes), ana_boxes,
+                         len(ana_boxes), out)
+    return out
+
+
+def exact_match(seq: np.ndarray, gt: np.ndarray) -> np.ndarray:
+    """[n] uint8: 1 where row i of seq equals row i of gt up to and
+    including its first 0 token (or over the whole row), for [n, t]
+    token arrays."""
+    seq = np.ascontiguousarray(seq, np.int32)
+    gt = np.ascontiguousarray(gt, np.int32)
+    if seq.ndim != 2 or seq.shape != gt.shape:
+        raise ValueError(f"seq {seq.shape}, gt {gt.shape}: want two [n, t]")
+    out = np.empty(len(seq), np.uint8)
+    load().exact_match(seq, gt, seq.shape[0], seq.shape[1], out)
     return out
 
 

@@ -11,9 +11,14 @@
 // inside > iou >= 0.5 > disconnected > 8 angular sectors; +1-pixel IoU
 // convention; lower triangle from the reversal table). Unit tests
 // cross-check it against the numpy implementation.
+//
+// match_disease is the greedy disease-to-anatomy re-anchoring of
+// ekaid_torch/extract/pipeline.py::match_disease_to_anatomy (the holder
+// steal rule included); exact_match compares 0-terminated token rows.
 
 #include <cmath>
 #include <cstdint>
+#include <vector>
 
 namespace {
 
@@ -72,6 +77,56 @@ void spatial_adjacency_batch(const float* boxes, int64_t n_imgs,
         adj[j * pad + i] = kReverse[t];
       }
     }
+  }
+}
+
+// dis_boxes [n_dis, 4], dis_valid [n_dis], ana_boxes [n_ana, 4];
+// out_assign [n_ana]: the disease index each anatomy box takes, -1 when
+// none. Diseases in order; anatomy box j goes to the first disease whose
+// IoU beats its best so far, and later to a better one only while its
+// holder keeps another box.
+void match_disease(const float* dis_boxes, const uint8_t* dis_valid,
+                   int64_t n_dis, const float* ana_boxes, int64_t n_ana,
+                   int32_t* out_assign) {
+  std::vector<double> best_iou(n_ana, 0.0);
+  std::vector<int32_t> holder(n_ana, -1);
+  std::vector<int32_t> hold_count(n_dis, 0);
+  for (int64_t i = 0; i < n_dis; ++i) {
+    if (!dis_valid[i]) continue;
+    for (int64_t j = 0; j < n_ana; ++j) {
+      double iou = iou_plus_one(dis_boxes + i * 4, ana_boxes + j * 4);
+      if (!(iou > best_iou[j])) continue;
+      if (holder[j] < 0) {
+        hold_count[i] += 1;
+      } else if (hold_count[holder[j]] > 1) {
+        hold_count[holder[j]] -= 1;
+        hold_count[i] += 1;
+      } else {
+        continue;
+      }
+      best_iou[j] = iou;
+      holder[j] = static_cast<int32_t>(i);
+    }
+  }
+  for (int64_t j = 0; j < n_ana; ++j) out_assign[j] = holder[j];
+}
+
+// seq, gt [n, t] int32, 0-terminated; out[i] = 1 when row i of seq
+// equals row i of gt up to and including the first 0 (or over all t).
+void exact_match(const int32_t* seq, const int32_t* gt, int64_t n,
+                 int64_t t, uint8_t* out) {
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t* s = seq + i * t;
+    const int32_t* g = gt + i * t;
+    uint8_t ok = 1;
+    for (int64_t j = 0; j < t; ++j) {
+      if (s[j] != g[j]) {
+        ok = 0;
+        break;
+      }
+      if (s[j] == 0) break;
+    }
+    out[i] = ok;
   }
 }
 

@@ -1,0 +1,2 @@
+"""Data parallelism of the port over `torch.distributed`
+(`parallel/mesh.py`)."""

@@ -15,6 +15,12 @@ lock; only the question row is uploaded per request. Decodes run one at
 a time per device (a lock around the launch): K1 is one cooperative
 kernel that fills the card.
 
+`InferenceEngine(trainer, artifact=...)` serves from a serving artifact
+(`serving/artifact.py`): it checks the dataset's sample shapes against
+the export's, takes the artifact's inference-cast weights, decodes at
+batch 1 only if the artifact exported it, and uploads the full-width
+inputs the export recorded (no compact wire), as the reference does.
+
     python -m ekaid_torch.serving.engine --n 8     # one JSON line each
 
 The HTTP server and the coalescing engine are `serving/server.py`.
@@ -38,6 +44,7 @@ import torch
 from ekaid_torch.config import default_config, load_config
 from ekaid_torch.data.pipeline import compact_wire
 from ekaid_torch.data.vocab import treebank_tokenize
+from ekaid_torch.serving.artifact import greedy
 from ekaid_torch.utils.dtypes import cast_params_for_inference
 
 #: pairs kept on the device (~0.6 MB each at flagship widths)
@@ -49,10 +56,11 @@ _NOT_INPUTS = ("pair_index", "labels", "masks")
 class InferenceEngine:
     """Answers questions about `trainer.eval_ds` with `trainer.model` on
     the model's device. `seed` drives `refresh`; `image_dir` holds the
-    PNGs that `image_bytes` serves."""
+    PNGs that `image_bytes` serves; `artifact`, a loaded serving
+    artifact, gives the weights and the exported batch sizes."""
 
     def __init__(self, trainer, seed: int = 0,
-                 image_dir: Optional[str] = None):
+                 image_dir: Optional[str] = None, artifact=None):
         self.trainer = trainer
         self.vocab = trainer.vocab
         self.ds = trainer.eval_ds
@@ -60,7 +68,18 @@ class InferenceEngine:
         self.rng = random.Random(seed)
         self.index = int(self.ds.split_idxs[0])
         self.image_dir = image_dir
+        self.artifact = artifact
         cast_params_for_inference(self.model, self.model.policy)
+        if artifact is not None:
+            artifact.check_sample({k: v for k, v in
+                                   self.ds.sample(self.index).items()
+                                   if k != "pair_index"})
+            artifact.load_into(self.model)
+            self._decode1 = artifact.fn_for_batch(1)
+            self._wire = dict              # the export's full width
+        else:
+            self._decode1 = greedy
+            self._wire = compact_wire
         self.device = self.model.device
         self.decode_kernel = self.model.cfg.speaker.decode_kernel
         print(f"engine: speaker.decode_kernel {self.decode_kernel!r} on "
@@ -74,7 +93,8 @@ class InferenceEngine:
 
     def _dev_sample(self, index: int) -> Dict[str, torch.Tensor]:
         """The pair's decode inputs on the device, [1, ...], uploaded
-        once per index at the compact wire dtypes and LRU-cached."""
+        once per index at the compact wire dtypes (full width from an
+        artifact) and LRU-cached."""
         with self._dev_cache_lock:
             hit = self._dev_cache.get(index)
             if hit is not None:
@@ -82,7 +102,7 @@ class InferenceEngine:
                 return hit
         # built and uploaded outside the lock: a duplicate upload of the
         # same index is harmless (both are equal; the last one stays)
-        s = compact_wire(self.ds.sample(index))
+        s = self._wire(self.ds.sample(index))
         hit = {k: torch.as_tensor(np.asarray(v)[None], device=self.device)
                for k, v in s.items() if k not in _NOT_INPUTS}
         with self._dev_cache_lock:
@@ -129,7 +149,7 @@ class InferenceEngine:
         t0 = time.time()
         batch = self._batch_for(idx, qids)
         with self._decode_lock:
-            out = self.model.decode(batch)
+            out = self._decode1(self.model, batch)
         seq = out["seq"][0].cpu().numpy()    # waits for the device
         res = {"answer": self.vocab.decode(seq), "index": idx,
                "latency_ms": round(1000 * (time.time() - t0), 2),

@@ -20,8 +20,10 @@ Concurrent requests are folded into one padded batched decode by
 `CoalescingEngine` (the default; `--coalesce_batch 0` serves from the
 batch-1 engine). Every decode is `EkaidModel.decode`, so K1 on the card.
 It runs on the CUDA device and raises without one, unless `--device cpu`
-is asked for. The reference's pre-compiled serving artifact
-(`--export_artifact`, `--artifact`) is not ported yet.
+is asked for. `--export_artifact DIR` writes a serving artifact
+(`serving/artifact.py`: the inference-cast weights and the built K1, for
+batch 1 and the coalescing batch) and exits; `--artifact DIR` serves
+from one, in place of `--checkpoint_dir`, without running nvcc.
 """
 
 from __future__ import annotations
@@ -41,22 +43,11 @@ import numpy as np
 import torch
 
 from ekaid_torch.config import default_config, load_config
+from ekaid_torch.serving.artifact import load_artifact, save_artifact
 from ekaid_torch.serving.engine import InferenceEngine
 from ekaid_torch.serving.webui import PAGE_HTML
-from ekaid_torch.utils.device import resolve_device
-
-
-def visible_devices(device: torch.device) -> list:
-    """The devices a model on `device` can be copied to: every CUDA
-    device for a CUDA model (its own first), the CPU alone for a CPU
-    one."""
-    if device.type != "cuda":
-        return [device]
-    own = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    return [torch.device("cuda", own)] + [
-        torch.device("cuda", i) for i in range(torch.cuda.device_count())
-        if i != own]
+from ekaid_torch.utils.device import resolve_device, visible_devices
+from ekaid_torch.utils.dtypes import cast_params_for_inference
 
 
 class CoalescingEngine(InferenceEngine):
@@ -82,13 +73,22 @@ class CoalescingEngine(InferenceEngine):
     `stats` counts requests, batches, coalesced batches, the largest
     batch and batches per device; `drain` waits for the queue and every
     slot to empty. A failure reaches every future of its batch and
-    leaves the dispatcher running."""
+    leaves the dispatcher running. With an `artifact`, the bucket's
+    decode is the artifact's batch-`coalesce_batch` one (raising when
+    that size was not exported), on one device."""
 
     def __init__(self, trainer, seed: int = 0,
                  image_dir: Optional[str] = None,
                  coalesce_batch: int = 16, linger_ms: float = 2.0,
-                 replicas: int = 1, pipeline_depth: int = 2):
-        super().__init__(trainer, seed=seed, image_dir=image_dir)
+                 replicas: int = 1, pipeline_depth: int = 2,
+                 artifact=None):
+        if artifact is not None and replicas > 1:
+            raise ValueError("replicas>1 with an artifact is not supported: "
+                             "its weights and kernels load onto one device")
+        super().__init__(trainer, seed=seed, image_dir=image_dir,
+                         artifact=artifact)
+        self._decode_n = (artifact.fn_for_batch(int(coalesce_batch))
+                          if artifact is not None else self._decode1)
         self.coalesce_batch = int(coalesce_batch)
         self.linger_s = float(linger_ms) / 1e3
         self.pipeline_depth = max(1, int(pipeline_depth))
@@ -144,8 +144,9 @@ class CoalescingEngine(InferenceEngine):
         batch = {k: torch.cat([r[k] for r in rows]).to(device)
                  for k in rows[0]}
         batch["question"] = torch.as_tensor(questions, device=device)
+        decode = self._decode1 if len(rows) == 1 else self._decode_n
         with self._locks[device]:
-            return self._models[device].decode(batch)
+            return decode(self._models[device], batch)
 
     def _dispatch(self):
         """The folding loop (see the class docstring)."""
@@ -342,17 +343,17 @@ def main(argv=None):
     p.add_argument("--replicas", type=int, default=1,
                    help="serve from N local devices (needs coalescing)")
     p.add_argument("--export_artifact", default=None, metavar="DIR",
-                   help="not ported: the pre-compiled serving artifact")
+                   help="save a serving artifact (the inference-cast "
+                        "weights and the built decode kernel, for batch 1 "
+                        "and the coalescing batch) to DIR, then exit "
+                        "(serving/artifact.py)")
     p.add_argument("--artifact", default=None, metavar="DIR",
-                   help="not ported: the pre-compiled serving artifact")
+                   help="serve from an artifact: no nvcc at startup; the "
+                        "weights come from it (overrides --checkpoint_dir)")
     p.add_argument("--workdir", default="build/ekaid_serve")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     a = p.parse_args(argv)
-    if a.export_artifact or a.artifact:
-        raise SystemExit("--export_artifact/--artifact: the serving "
-                         "artifact is not ported yet (ROADMAP.md, queue 1); "
-                         "serve from a checkpoint")
     if a.coalesce_batch <= 0 and a.replicas > 1:
         raise SystemExit("--replicas requires coalescing "
                          "(--coalesce_batch > 0)")
@@ -365,17 +366,36 @@ def main(argv=None):
         trainer = build_synthetic_trainer(cfg, a.workdir, device=device)
     else:
         trainer = build_trainer(cfg, a.workdir, "test", device=device)
-    if a.checkpoint_dir:
+    if a.checkpoint_dir and not a.artifact:
         CheckpointManager(a.checkpoint_dir).restore(trainer.state,
                                                     name=a.checkpoint)
         print(f"loaded checkpoint step {int(trainer.state.step)}")
+
+    if a.export_artifact:
+        model = cast_params_for_inference(trainer.model, trainer.model.policy)
+        sample = {k: v for k, v in trainer.eval_ds.sample(
+            int(trainer.eval_ds.split_idxs[0])).items() if k != "pair_index"}
+        sizes = (1, a.coalesce_batch) if a.coalesce_batch > 0 else (1,)
+        save_artifact(a.export_artifact, model, sample, batch_sizes=sizes)
+        print(f"exported artifact to {a.export_artifact} "
+              f"(batch sizes {sorted(set(sizes))})")
+        return
+
+    artifact = None
+    if a.artifact:
+        artifact = load_artifact(a.artifact, device)
+        print(f"loaded artifact from {a.artifact} (platform "
+              f"{artifact.meta['platform']}, batch sizes "
+              f"{artifact.meta['batch_sizes']})")
     if a.coalesce_batch > 0:
         engine: InferenceEngine = CoalescingEngine(
             trainer, image_dir=a.image_dir,
             coalesce_batch=a.coalesce_batch, linger_ms=a.linger_ms,
-            replicas=a.replicas, pipeline_depth=a.pipeline_depth)
+            replicas=a.replicas, pipeline_depth=a.pipeline_depth,
+            artifact=artifact)
     else:
-        engine = InferenceEngine(trainer, image_dir=a.image_dir)
+        engine = InferenceEngine(trainer, image_dir=a.image_dir,
+                                 artifact=artifact)
     server = Server((a.host, a.port), make_handler(engine))
 
     # graceful shutdown: stop accepting, then drain the decodes in flight

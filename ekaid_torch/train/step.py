@@ -18,23 +18,38 @@ moves nothing. Updates are in place, with
 `torch._foreach_*` ops, so every parameter's version counter moves with
 each step (the decode weight caches key on it).
 
-Random draws are a function of (seed, step, microbatch): a resumed run
-draws what the uninterrupted run drew, and no generator state is saved.
+Random draws are a function of (seed, step, microbatch, and the rank
+on a data axis of several processes): a resumed run draws what the
+uninterrupted run drew, and no generator state is saved.
+
+Data parallel (`train_step(..., ddp=...)`, `parallel/mesh.py`): each
+rank's batch is its part of the global batch. The loss is the
+reference's global-batch quantity: the answer NLL divided by the
+answer tokens of the whole global batch and the attention term by
+twice its pairs (both all-reduced), so each rank's term is its share
+of the global loss. DDP averages the gradients over the ranks, so each
+rank's term is scaled by the world size first: the all-reduced
+gradient is then the global loss's, on every rank, whatever the ranks'
+answer lengths. (Averaging per-rank mean losses would weight each
+rank's tokens by the inverse of its own token count.)
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
 from ekaid_torch.models.ekaid import total_loss
 from ekaid_torch.models.layers import WNDense, frobenius
+from ekaid_torch.parallel.mesh import all_reduce_sum
 
 KINDS = ("adam", "sgd", "sgdm", "sgdmom", "rmsprop", "adagrad")
 ADAGRAD_INIT = 0.1
@@ -227,11 +242,13 @@ def init_state(model: nn.Module, optim_cfg,
 
 
 def generator(seed: int, step: int, micro: int, stream: int,
-              device) -> torch.Generator:
+              device, rank: int = 0) -> torch.Generator:
     """A generator on `device` seeded from (seed, step, microbatch,
-    stream) alone."""
-    words = np.random.SeedSequence(
-        [seed & 0xFFFFFFFF, step, micro, stream]).generate_state(2)
+    stream) and, past rank 0 of a data axis, the rank alone (rank 0
+    draws what one process draws)."""
+    entropy = [seed & 0xFFFFFFFF, step, micro, stream] + (
+        [rank] if rank else [])
+    words = np.random.SeedSequence(entropy).generate_state(2)
     g = torch.Generator(device=device)
     g.manual_seed(int(words[0]) << 31 | int(words[1]) >> 1)
     return g
@@ -253,11 +270,27 @@ def _cast_params(model: nn.Module, policy) -> Dict[str, torch.Tensor]:
             for n, p in model.named_parameters()}
 
 
+class Forward(nn.Module):
+    """The model's training forward as one module, the one DDP wraps:
+    with `params`, the model runs on them (`functional_call`, for
+    train_step's param_cast)."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch, params=None, **kwargs):
+        if params is None:
+            return self.model(batch, **kwargs)
+        return functional_call(self.model, params, (batch,), kwargs)
+
+
 def train_step(state: TrainState, batch, seed: int,
                att_reg_weight: float, ss_prob: float = 0.0,
                param_cast: bool = False, accum_steps: int = 1,
                entropy_weight: float = 0.0,
-               train: bool = True) -> Dict[str, torch.Tensor]:
+               train: bool = True,
+               ddp: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
     """One optimizer step on `batch`, in place; returns total_loss,
     speaker_loss, att_reg (entropy with an entropy weight) and grad_norm
     as 0-d tensors on the model's device (no host sync).
@@ -269,47 +302,65 @@ def train_step(state: TrainState, batch, seed: int,
     mask sum and size, so the microbatch losses and gradients sum to the
     full batch's; one update. train=False: no dropout and no scheduled
     sampling. Each parameter's `.grad` holds this step's gradient (before
-    clipping) until the next step."""
+    clipping) until the next step.
+
+    ddp: `Forward(state.model)` wrapped by `parallel.mesh.wrap`; `batch`
+    is then this rank's part of the global batch, and the returned
+    losses and the gradients are the global batch's, equal on every
+    rank (see the module docstring)."""
     model, opt = state.model, state.opt
     policy = model.policy
     b = model.tensors(batch, train=True)
     dev = model.device
+    world, rank = ((dist.get_world_size(), dist.get_rank())
+                   if ddp is not None else (1, 0))
 
     def loss_fn(mb, micro, lang_denom=None, batch_denom=None):
         gens = {}
         if train:
-            gens = {"gen": generator(seed, state.step, micro, DROPOUT, dev),
+            gens = {"gen": generator(seed, state.step, micro, DROPOUT, dev,
+                                     rank),
                     "ss_gen": generator(seed, state.step, micro, SAMPLE,
-                                        dev)}
-        if param_cast and policy.compute_dtype != torch.float32:
-            out = functional_call(model, _cast_params(model, policy), (mb,),
-                                  dict(ss_prob=ss_prob, **gens))
-        else:
-            out = model(mb, ss_prob=ss_prob, **gens)
+                                        dev, rank)}
+        params = (_cast_params(model, policy) if param_cast
+                  and policy.compute_dtype != torch.float32 else None)
+        fwd = ddp if ddp is not None else Forward(model)
+        out = fwd(mb, params, ss_prob=ss_prob, **gens)
         return total_loss(out, mb, att_reg_weight,
                           entropy_weight=entropy_weight,
                           lang_denom=lang_denom, batch_denom=batch_denom)
 
     model.zero_grad(set_to_none=True)
-    if accum_steps > 1:
-        B = b["labels"].shape[0]
-        if B % accum_steps:
-            raise ValueError(f"batch size {B} not divisible by "
-                             f"train.accum_steps={accum_steps}")
-        lang_denom = torch.clamp(b["masks"][:, 1:].float().sum(), min=1.0)
-        loss, aux = 0.0, {}
-        for i in range(accum_steps):
-            mb = {k: v[i::accum_steps] for k, v in b.items()}
-            li, ai = loss_fn(mb, i, lang_denom, B)
-            li.backward()
-            loss = loss + li.detach()
-            for k, v in ai.items():
-                aux[k] = aux.get(k, 0.0) + v.detach()
-    else:
-        loss, aux = loss_fn(b, 0)
-        loss.backward()
-        loss = loss.detach()
-        aux = {k: v.detach() for k, v in aux.items()}
+    B = b["labels"].shape[0]
+    if B % accum_steps:
+        raise ValueError(f"batch size {B} not divisible by "
+                         f"train.accum_steps={accum_steps}")
+    lang_denom = batch_denom = None
+    if accum_steps > 1 or ddp is not None:
+        # the whole (global) batch's answer tokens and pairs
+        sums = torch.stack([b["masks"][:, 1:].float().sum(),
+                            torch.tensor(float(B), device=dev)])
+        if ddp is not None:
+            sums = all_reduce_sum(sums)
+        lang_denom = torch.clamp(sums[0], min=1.0)
+        batch_denom = sums[1] if ddp is not None else B
+    loss, aux = 0.0, {}
+    for i in range(accum_steps):
+        mb = ({k: v[i::accum_steps] for k, v in b.items()}
+              if accum_steps > 1 else b)
+        last = i == accum_steps - 1
+        with (ddp.no_sync() if ddp is not None and not last
+              else contextlib.nullcontext()):
+            li, ai = loss_fn(mb, i, lang_denom, batch_denom)
+            # DDP averages over the ranks: scale back to their sum
+            (li * world if world > 1 else li).backward()
+        loss = loss + li.detach()
+        for k, v in ai.items():
+            aux[k] = aux.get(k, 0.0) + v.detach()
+    if ddp is not None:
+        keys = list(aux)
+        sums = all_reduce_sum(torch.stack([loss] + [aux[k] for k in keys]))
+        loss, aux = sums[0], dict(zip(keys, sums[1:]))
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in opt.params]
     gn = global_norm(grads)

@@ -4,6 +4,7 @@
     python -m ekaid_torch.train.train --synthetic --max_iter 100
     python -m ekaid_torch.train.train --synthetic --device cpu \
         --cfg configs/smoke.yaml --max_iter 4 --snapshot_interval 2
+    torchrun --nproc_per_node 2 -m ekaid_torch.train.train --synthetic
 
 The loop: per epoch the scheduled-sampling probability, then per batch
 one `train_step`, a log line every `log_interval` steps, and every
@@ -18,10 +19,22 @@ asks for the CPU (`device='cpu'`, `--device cpu`). Batches are built by
 the loader's threads in numpy; the trainer copies the next one to the
 card from pinned memory while the current step runs. The optimizer
 state checkpoints with the parameters, and `--resume` continues from
-the exact batch where the run stopped. One device only: a data or model
-mesh wider than 1 raises. `evaluate(beam_size > 1)` decodes with beam
-search (`EkaidModel.decode_beam`, plain torch) from the loader's wire
-batches.
+the exact batch where the run stopped. `evaluate(beam_size > 1)`
+decodes with beam search (`EkaidModel.decode_beam`, plain torch) from
+the loader's wire batches.
+
+Data parallel: under `torchrun` (or any joined `torch.distributed`
+group) the model trains in DDP over the group's processes, one device
+each (`parallel/mesh.py`); `mesh.data` of -1 or the world size is that
+group, anything else raises, and so does `mesh.model` other than 1.
+Each rank reads `train.batch_size / world` pairs a step: the Loader's
+shard `rank` of `world` takes every world-th pair of the epoch's
+shuffled order, so the ranks' batches of step i are together exactly
+the one-process batch i of `train.batch_size` pairs, the reference's
+global batch. Length buckets apply with one process only (each rank
+would pick its own). The loss is the global batch's
+(`train/step.py`). Rank 0 alone evaluates, logs, writes snapshots and
+the workdir's files; the ranks meet at a barrier after each snapshot.
 """
 
 from __future__ import annotations
@@ -44,8 +57,9 @@ from ekaid_torch.data.pipeline import (DiffVQADataset, H5FeatureStore,
 from ekaid_torch.data.vocab import Vocabulary, identity_vocab
 from ekaid_torch.metrics.coco import CaptionEvaluator, CocoCaptions
 from ekaid_torch.models.ekaid import EkaidModel
+from ekaid_torch.parallel import mesh as dp
 from ekaid_torch.train.score import accuracy
-from ekaid_torch.train.step import init_state, train_step
+from ekaid_torch.train.step import Forward, init_state, train_step
 from ekaid_torch.utils.checkpoint import CheckpointManager
 from ekaid_torch.utils.device import host_to_device, resolve_device
 from ekaid_torch.utils.dtypes import Policy
@@ -80,20 +94,23 @@ class Trainer:
                  vocab: Vocabulary, gt_annotations: Optional[dict] = None,
                  device="cuda"):
         self.device = resolve_device(device)
-        if cfg.mesh.data > 1 or cfg.mesh.model > 1:
-            raise NotImplementedError(
-                f"mesh data={cfg.mesh.data} model={cfg.mesh.model}: the "
-                "port trains on one device")
+        self.axis = dp.data_axis(cfg.mesh, self.device)
+        self.lead = self.axis.rank == 0
+        if train_ds.batch_size % self.axis.world:
+            raise ValueError(f"train batch {train_ds.batch_size} does not "
+                             f"split over {self.axis.world} ranks")
         self.workdir = workdir
         os.makedirs(workdir, exist_ok=True)
         # the answer vocabulary's size comes from the data; the decode
         # kernel's name is resolved here, once ('auto' -> 'pallas')
         kernel = resolve_decode_kernel(cfg.speaker.decode_kernel)
-        print(f"speaker.decode_kernel {cfg.speaker.decode_kernel!r} -> "
-              f"{kernel!r}", file=sys.stderr)
+        if self.lead:
+            print(f"speaker.decode_kernel {cfg.speaker.decode_kernel!r} -> "
+                  f"{kernel!r}", file=sys.stderr)
         self.cfg = cfg = cfg.replace(speaker=cfg.speaker.replace(
             vocab_size=vocab.size, decode_kernel=kernel))
-        cfg.to_json(os.path.join(workdir, "cfg.json"))
+        if self.lead:
+            cfg.to_json(os.path.join(workdir, "cfg.json"))
         self.vocab = vocab
         self.train_ds = train_ds
         self.eval_ds = eval_ds
@@ -104,6 +121,9 @@ class Trainer:
         self.steps_per_epoch = max(1, len(train_ds) // train_ds.batch_size)
         self.state = init_state(self.model, cfg.train.optim,
                                 self.steps_per_epoch)
+        #: the DDP-wrapped training forward when a group is joined
+        self.ddp = (dp.wrap(Forward(self.model), self.axis)
+                    if self.axis.distributed else None)
         self.ckpt = CheckpointManager(os.path.join(workdir, "snapshots"))
         self.stop_requested = False
         self.best = self.ckpt.best_metric()
@@ -111,7 +131,8 @@ class Trainer:
         #: when set, each step's seconds (host clock, device synced)
         self.step_seconds: Optional[list] = None
         self._eval_cache = None
-        self._dump_model_print()
+        if self.lead:
+            self._dump_model_print()
 
     def install_preemption_handler(self):
         """SIGTERM/SIGINT: finish the step in flight, checkpoint, return
@@ -149,9 +170,15 @@ class Trainer:
         t = self.state.step
         epoch = t // self.steps_per_epoch
         last_metrics: Dict = {}
-        loader = Loader(self.train_ds, shuffle=True, seed=cfg.train.seed,
+        world = self.axis.world
+        # each rank's shard of every global batch (see the docstring)
+        loader = Loader(self.train_ds,
+                        batch_size=self.train_ds.batch_size // world,
+                        shuffle=True, seed=cfg.train.seed,
                         num_threads=cfg.data.num_workers,
-                        prefetch=cfg.data.prefetch)
+                        prefetch=cfg.data.prefetch,
+                        shard_index=self.axis.rank, num_shards=world)
+        buckets = cfg.train.length_buckets if world == 1 else ()
         # exact mid-epoch resume: the restored epoch's permutation, less
         # the batches already taken
         loader.epoch = epoch
@@ -163,7 +190,7 @@ class Trainer:
             before the current batch is handed to the step."""
             nxt = None
             for batch in loader:
-                batch = trim_batch_to_bucket(batch, cfg.train.length_buckets,
+                batch = trim_batch_to_bucket(batch, buckets,
                                              cfg.speaker.seq_length)
                 cur, nxt = nxt, to_device(batch, self.device)
                 if cur is not None:
@@ -175,9 +202,10 @@ class Trainer:
             ss_prob = ss_prob_for_epoch(cfg, epoch)
             for batch in device_batches():
                 if self.stop_requested:
-                    self.ckpt.save(self.state, config_dict=cfg.to_dict())
-                    print(f"preempted at iter {t}: checkpoint saved; "
-                          f"resume with --resume")
+                    if self.lead:
+                        self.ckpt.save(self.state, config_dict=cfg.to_dict())
+                        print(f"preempted at iter {t}: checkpoint saved; "
+                              f"resume with --resume")
                     return last_metrics
                 it_start = time.time()
                 metrics = train_step(
@@ -185,13 +213,13 @@ class Trainer:
                     cfg.train.att_reg_weight, ss_prob=ss_prob,
                     param_cast=cfg.dtypes.train_param_cast,
                     accum_steps=cfg.train.accum_steps,
-                    entropy_weight=cfg.train.entropy_weight)
+                    entropy_weight=cfg.train.entropy_weight, ddp=self.ddp)
                 if self.step_seconds is not None:
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
                     self.step_seconds.append(time.time() - it_start)
                 t += 1
-                if t % log_every == 0:
+                if t % log_every == 0 and self.lead:
                     m = {k: float(v) for k, v in metrics.items()}
                     m["iter_time"] = time.time() - it_start
                     print(f"epoch {epoch} iter {t} "
@@ -199,11 +227,18 @@ class Trainer:
                     self.logger.log(t, m, prefix="train/")
                     last_metrics = m
                 if t % cfg.train.snapshot_interval == 0:
-                    self.snapshot_and_eval(t, max_batches=eval_fraction)
+                    if self.lead:
+                        self.snapshot_and_eval(t, max_batches=eval_fraction)
+                    self.barrier()
                 if t >= cfg.train.max_iter:
                     break
             epoch += 1
         return last_metrics
+
+    def barrier(self) -> None:
+        """Wait for every rank (nothing to wait for without a group)."""
+        if self.axis.distributed:
+            torch.distributed.barrier()
 
     # ------------------------------------------------------------- eval ---
 
@@ -259,7 +294,8 @@ class Trainer:
                         prefetch=cfg.data.prefetch, wire=cfg.data.eval_wire)
         if use_cache is None:
             use_cache = cfg.data.eval_device_cache > 0
-        if use_cache and beam_size == 1:
+        # the cache holds graph features: mode0 reads the wire batches
+        if use_cache and beam_size == 1 and cfg.data.feature_mode != "mode0":
             batches = self._cached_batches(
                 loader, max(1, cfg.data.eval_device_cache))
         else:
@@ -379,7 +415,8 @@ def main(argv=None):
                    help="trailing dotted-key config overrides, e.g. "
                         "train.accum_steps 2 speaker.remat dots")
     a = p.parse_args(argv)
-    device = resolve_device(a.device)
+    # under torchrun: join the group, on cuda:LOCAL_RANK
+    device = resolve_device(dp.init_from_env(a.device))
 
     cfg = load_config(a.cfg) if a.cfg else default_config()
     if a.overrides:
@@ -412,10 +449,13 @@ def main(argv=None):
         print(f"resumed from step {trainer.state.step}")
     trainer.install_preemption_handler()
     trainer.train(eval_fraction=a.eval_batches)
-    if trainer.stop_requested:            # preempted: the checkpoint is
-        return                            # saved; skip the final eval
-    trainer.snapshot_and_eval(trainer.state.step,
-                              max_batches=a.eval_batches)
+    # preempted: the checkpoint is saved; skip the final eval
+    if not trainer.stop_requested and trainer.lead:
+        trainer.snapshot_and_eval(trainer.state.step,
+                                  max_batches=a.eval_batches)
+    if trainer.axis.distributed:
+        trainer.barrier()
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -24,3 +24,17 @@ def host_to_device(array, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         t = t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+def visible_devices(device: torch.device) -> list:
+    """The devices a model on `device` can be copied to: every CUDA
+    device for a CUDA model (its own first), the CPU alone for a CPU
+    one."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [device]
+    own = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return [torch.device("cuda", own)] + [
+        torch.device("cuda", i) for i in range(torch.cuda.device_count())
+        if i != own]

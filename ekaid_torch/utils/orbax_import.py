@@ -8,7 +8,8 @@ the key path joined by '.'. This module reads that map and the arrays
 with `tensorstore` alone, and builds the port's objects from them:
 
   * a VQA snapshot (`ekaid_tpu/train/step.py::TrainState`: step, flax
-    params, optax state) into the port's `train/step.py::TrainState`:
+    params, optax state; mode2 or the pixels-in mode0) into the port's
+    `train/step.py::TrainState`:
     the params through `convert.load_flax_params`, the optimizer slots
     of each of the seven kinds of `make_optimizer` through
     `convert.load_optax_state`;

@@ -252,7 +252,9 @@ def test_runner_cli_synthetic_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--synthetic", "2", "--allow_random", "--dp", "4"], "--dp"),
+    # more replicas than visible devices (the CPU is one)
+    (["--synthetic", "2", "--allow_random", "--dp", "2", "--device", "cpu"],
+     "--dp 2: only 1 device"),
     (["--synthetic", "2", "--ana_ckpt", "x"], "orbax"),
     (["--synthetic", "2"], "--allow_random"),
 ])

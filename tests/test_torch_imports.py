@@ -57,7 +57,10 @@ def test_port_imports_no_jax_and_no_reference_package(probe):
                  "data.detection", "metrics.detection", "data.images",
                  "data.preprocess", "tools.torch_convert", "tools.pipeline",
                  "utils.observability", "viz.draw", "viz.ask",
-                 "viz.examples", "models.quant", "native.bindings"):
+                 "viz.examples", "models.quant", "native.bindings",
+                 "native", "models.change_detector", "models.ekaid",
+                 "serving.artifact", "parallel", "parallel.mesh",
+                 "kernels"):
         assert f"ekaid_torch.{name}" in probe["modules"], name
     assert probe["loaded"] == []
 

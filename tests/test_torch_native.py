@@ -123,6 +123,56 @@ def test_combine_pair_native_equals_numpy(rng, plain):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
+def _match_plain(dis_boxes, dis_valid, ana_boxes):
+    """match_disease's plain version: the disease index each anatomy
+    box takes in `match_disease_to_anatomy`, -1 where none."""
+    n = len(dis_boxes)
+    _, cls = xp.match_disease_to_anatomy(
+        dis_boxes, np.arange(n, dtype=np.float32)[:, None], np.arange(n),
+        np.asarray(dis_valid, bool), ana_boxes, n)
+    return np.where(cls >= n, -1, cls).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["random", "steals", "none valid",
+                                  "fewer diseases", "repeated boxes"])
+def test_match_disease_matches_python_and_the_reference(rng, case):
+    ana = random_boxes(rng, 26)
+    dis = random_boxes(rng, 26)
+    valid = rng.random(26) > 0.3
+    if case == "steals":            # every disease near an anatomy box
+        dis = ana[rng.permutation(26)] + rng.uniform(-20, 20, (26, 4))
+        dis = dis.astype(np.float32)
+    elif case == "none valid":
+        valid[:] = False
+    elif case == "fewer diseases":
+        dis, valid = dis[:5], valid[:5]
+    elif case == "repeated boxes":
+        dis[1::2] = dis[0::2]
+    got = nat.match_disease(dis, valid, ana)
+    assert got.dtype == np.int32 and got.shape == (26,)
+    np.testing.assert_array_equal(got, _match_plain(dis, valid, ana))
+    np.testing.assert_array_equal(got, jnat.match_disease(dis, valid, ana))
+
+
+def test_exact_match_matches_numpy_and_the_reference(rng):
+    gt = rng.integers(1, 9, (64, 12)).astype(np.int32)
+    ends = rng.integers(0, 13, 64)
+    for i, e in enumerate(ends):
+        gt[i, e:] = 0
+    seq = gt.copy()
+    seq[::3, 2] += 1                   # differ before the end
+    seq[1::3, -1] = 7                  # differ past the first 0 only
+    got = nat.exact_match(seq, gt)
+    assert got.dtype == np.uint8 and got.shape == (64,)
+    want = np.array([all(a == b for a, b in zip(
+        s[:list(g).index(0) + 1] if 0 in g else s,
+        g[:list(g).index(0) + 1] if 0 in g else g))
+        for s, g in zip(seq, gt)], np.uint8)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, jnat.exact_match(seq, gt))
+    assert 0 < got.sum() < 64
+
+
 # ------------------------------------------------------------ the gather ---
 
 def test_gather_rows_match_numpy_slicing(tmp_path, rng):

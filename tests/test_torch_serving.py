@@ -244,10 +244,20 @@ def test_failure_reaches_every_future_and_serving_goes_on(engine):
     assert eng.drain(timeout_s=30)
 
 
-@pytest.mark.parametrize("flag", ["--export_artifact", "--artifact"])
-def test_server_refuses_the_artifact_flags(flag, tmp_path):
-    with pytest.raises(SystemExit, match="serving artifact is not ported"):
-        server.main(["--synthetic", "--device", "cpu", flag, str(tmp_path)])
+@pytest.mark.parametrize("bucket", ["16", "0"])
+def test_server_refuses_the_artifact_flags(bucket, tmp_path):
+    """--artifact of an artifact exported for another platform raises
+    before any engine is built (coalescing and batch-1)."""
+    import json
+    art = tmp_path / "art"
+    base = ["--synthetic", "--device", "cpu", "--cfg", "configs/smoke.yaml",
+            "--coalesce_batch", bucket, "--workdir", str(tmp_path / "w")]
+    server.main(base + ["--export_artifact", str(art)])
+    meta = json.loads((art / "meta.json").read_text())
+    meta["platform"] = "cuda"
+    (art / "meta.json").write_text(json.dumps(meta))
+    with pytest.raises(RuntimeError, match="exported for platform 'cuda'"):
+        server.main(base + ["--artifact", str(art)])
 
 
 def test_server_refuses_replicas_without_coalescing():

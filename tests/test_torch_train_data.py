@@ -150,9 +150,3 @@ def test_h5_feature_store_reads_a_written_file(tmp_path, chunks):
                                       arrays["image_adj_matrix"][2])
         assert ps.clone() is ps or comp is not None
 
-
-def test_dataset_refuses_mode0():
-    cfg = port_cfg(_cfg())
-    cfg = cfg.replace(data=cfg.data.replace(feature_mode="mode0"))
-    with pytest.raises(NotImplementedError, match="mode0"):
-        pp.synthetic_dataset(cfg, "train", n_pairs=4)

@@ -236,8 +236,13 @@ def test_trainer_and_main_need_a_card_unless_asked_for_the_cpu(tmp_path):
                         "--workdir", str(tmp_path)])
 
 
-def test_trainer_refuses_a_mesh(tmp_path):
+@pytest.mark.parametrize("axis,error,msg", [
+    ("model", NotImplementedError, "'model' axis"),
+    ("data", ValueError, "mesh.data=2 but the data axis has 1")])
+def test_trainer_refuses_a_mesh(tmp_path, axis, error, msg):
+    """The 'model' axis is not ported; a data axis the process group
+    does not have (one process here) raises."""
     cfg = _cfg(max_iter=1)
-    cfg = cfg.replace(mesh=cfg.mesh.replace(data=2))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    cfg = cfg.replace(mesh=cfg.mesh.replace(**{axis: 2}))
+    with pytest.raises(error, match=msg):
         build_synthetic_trainer(cfg, str(tmp_path), n_pairs=16, device="cpu")
