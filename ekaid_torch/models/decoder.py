@@ -72,7 +72,8 @@ class DynamicCore(nn.Module):
         c_lang); masks: (vpos, dpos, gate_h) dropout masks or None;
         mod_pre [B, 4R] = fused @ module_att_lstm.w_ih[:E] and
         lang_xt_pre [B, 4R] = xt @ lang_lstm.w_ih[:W], precomputed by
-        teacher forcing's hoist. Returns h_lang, the new state, the POS
+        teacher forcing's hoist (`LSTMCell.pre_product`: with w_ih
+        sharded, this rank's part). Returns h_lang, the new state, the POS
         logits and the module weights [B, 3]."""
         c, p = self.cfg, self.policy
         cast = p.cast_compute
@@ -206,13 +207,11 @@ class DynamicSpeaker(nn.Module):
         mod_pre = lang_pre = None
         if hoist:
             core = self.core
-            mod_pre = p.mm(fused, cast(core.module_att_lstm.w_ih)[
-                :c.embed_dim])
+            mod_pre = core.module_att_lstm.pre_product(fused)
             emb = torch.relu(cast(F.embedding(tokens, self.word_emb)))
             if train:
                 emb = apply_mask(emb, masks[0], 1.0 - c.drop_prob_lm)
-            lang_pre = p.mm(emb, cast(core.lang_lstm.w_ih)[
-                :c.word_embed_size])                          # [T, B, 4R]
+            lang_pre = core.lang_lstm.pre_product(emb)        # [T, B, 4R]
 
         def step(it, state, m_word, m_vpos, m_dpos, m_gate, m_out, lpre):
             core_masks = None if m_vpos is None else (m_vpos, m_dpos, m_gate)
@@ -262,7 +261,9 @@ class DynamicSpeaker(nn.Module):
 
     def decode_weights(self) -> Dict[str, torch.Tensor]:
         """The decode weights in the compute dtype, prepared once per
-        parameter set (rebuilt when a parameter moves or changes)."""
+        parameter set (rebuilt when a parameter moves or changes). With
+        sharded weights they are gathered whole here, once per set: a
+        collective of the model group."""
         key = tuple((p.data_ptr(), p._version, p.device)
                     for p in self.parameters())
         if key != self._weights_key:

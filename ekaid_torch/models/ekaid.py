@@ -17,6 +17,12 @@ A batch is a dict of padded arrays (numpy or torch):
 teacher forcing; the losses below turn its outputs into the training
 objective. `encode`, the greedy `decode` and the beam-search
 `decode_beam` run without gradients.
+
+On a mesh (`parallel/mesh.py`), the parameters that its rules shard
+over the model axis hold this rank's block (`parallel/tensor.py`), and
+a greedy decode splits its rows over the data axis (the reference's
+`decode_mesh`): each rank decodes its contiguous block, through K1 on
+the card, and the blocks are gathered back in row order.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from ekaid_torch.models.change_detector import ChangeDetector
 from ekaid_torch.models.decoder import DynamicSpeaker
 from ekaid_torch.models.layers import init_params
 from ekaid_torch.ops.graph import broadcast_adjacency
+from ekaid_torch.parallel.tensor import gather, shard_parameters
 from ekaid_torch.utils.device import resolve_device
 from ekaid_torch.utils.dtypes import F32, Policy
 
@@ -46,7 +53,7 @@ class EkaidModel(nn.Module):
     or reference weights with `ekaid_torch.convert.load_flax_params`."""
 
     def __init__(self, cfg, ntoken: int, policy: Policy = F32,
-                 device="cuda", seed: Optional[int] = 0):
+                 device="cuda", seed: Optional[int] = 0, mesh=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
@@ -59,6 +66,10 @@ class EkaidModel(nn.Module):
         self.speaker = DynamicSpeaker(cfg.speaker, policy)
         if seed is not None:
             init_params(self, torch.Generator().manual_seed(seed))
+        #: the `parallel.mesh.Mesh` this model is placed on, or None
+        self.mesh = mesh
+        if mesh is not None:
+            shard_parameters(self, mesh)
         self.to(dev)
         self.eval()
 
@@ -124,13 +135,35 @@ class EkaidModel(nn.Module):
         default, through the kernel K1 or, with speaker.decode_kernel
         'xla', the torch step loop; sample_max=False draws
         multinomially in the loop, with the draws from gumbel or
-        gen)."""
-        enc = self.encode(batch)
+        gen). On a mesh with a data axis over 1, a greedy decode runs on
+        this rank's block of rows and returns the whole batch's
+        (`_rows_of_this_rank`): every rank must call it together."""
+        mesh = self.mesh
+        split = sample_max and mesh is not None and mesh.data > 1
+        b = self.tensors(batch)
+        if split:
+            b = self._rows_of_this_rank(b)
+        enc = self._encode(b)
         dec = self.speaker.sample(enc["feat_bef"], enc["feat_aft"],
                                   enc["feat_diff"], sample_max=sample_max,
                                   temperature=temperature, gumbel=gumbel,
                                   gen=gen, early_exit=early_exit)
-        return {**enc, **dec}
+        out = {**enc, **dec}
+        if split:
+            out = {k: gather(v, mesh.data_group, 0) for k, v in out.items()}
+        return out
+
+    def _rows_of_this_rank(self, b) -> Dict[str, torch.Tensor]:
+        """This rank's contiguous block of the batch's rows, as P('data')
+        places them; a batch that the data axis does not divide
+        raises."""
+        n, parts = b["question"].shape[0], self.mesh.data
+        if n % parts:
+            raise ValueError(f"decode batch {n} does not split over the "
+                             f"{parts} ranks of the data axis")
+        k = n // parts
+        return {key: v[self.mesh.d * k:(self.mesh.d + 1) * k]
+                for key, v in b.items()}
 
     @torch.no_grad()
     def decode_beam(self, batch, beam_size: int = 3,

@@ -25,12 +25,14 @@ sigmoid run in f32 from the rounded inputs.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ekaid_torch.models.layers import lstm_gates
+from ekaid_torch.parallel.tensor import full_tensor
 from ekaid_torch.utils.dtypes import Policy
 
 #: decode weights, in the kernel's pointer order
@@ -243,11 +245,18 @@ def decode_plan(B: int, E: int, R: int, D: int, W: int, V: int, P: int,
 
 def decode_weights(speaker, cfg, policy: Policy) -> Dict[str, torch.Tensor]:
     """Compute-dtype, contiguous copies of a DynamicSpeaker's decode
-    weights; lang_lstm.w_ih is split at word_embed_size."""
+    weights; lang_lstm.w_ih is split at word_embed_size. Weights sharded
+    over the model axis are gathered whole (a collective of its
+    group)."""
     core, W = speaker.core, cfg.word_embed_size
+
+    def whole(module, name):
+        return full_tensor(getattr(module, name), module.shard)
+
+    lang_wih = whole(core.lang_lstm, "w_ih")
     src = {
         "wemb": speaker.word_emb,
-        "wih_mod": core.module_att_lstm.w_ih,
+        "wih_mod": whole(core.module_att_lstm, "w_ih"),
         "whh_mod": core.module_att_lstm.w_hh,
         "b_mod": core.module_att_lstm.b,
         "wfc": core.weight_fc.kernel, "bfc": core.weight_fc.bias,
@@ -256,9 +265,10 @@ def decode_weights(speaker, cfg, policy: Policy) -> Dict[str, torch.Tensor]:
         "wpos2": core.pos2.kernel, "bpos2": core.pos2.bias,
         "wg1": core.gate1x.kernel, "bg1": core.gate1x.bias,
         "wg2": core.gate2x.kernel, "bg2": core.gate2x.bias,
-        "wih_x": core.lang_lstm.w_ih[:W], "wih_a": core.lang_lstm.w_ih[W:],
+        "wih_x": lang_wih[:W], "wih_a": lang_wih[W:],
         "whh_lang": core.lang_lstm.w_hh, "b_lang": core.lang_lstm.b,
-        "wlogit": speaker.logit.kernel, "blogit": speaker.logit.bias,
+        "wlogit": whole(speaker.logit, "kernel"),
+        "blogit": speaker.logit.bias,
     }
     with torch.no_grad():
         return {k: policy.cast_compute(src[k]).contiguous()
@@ -405,26 +415,36 @@ def pack_weight(w: torch.Tensor, job: Job) -> torch.Tensor:
     return (w[:, idx] * mask.to(w.dtype)).permute(1, 0, 2).contiguous()
 
 
-#: (source tensors, their versions and tile widths, packed), newest last
+#: (weak references to the source tensors, their versions and tile
+#: widths, packed), newest last
 _packed: List[tuple] = []
+
+
+def _forget_dead(_ref=None) -> None:
+    """Drop the entries whose source tensors are gone (a weak
+    reference's callback: the packed copies go with their sources)."""
+    _packed[:] = [e for e in _packed if all(r() is not None for r in e[0])]
 
 
 def _packed_weights(w, plan: DecodePlan) -> Dict[str, torch.Tensor]:
     """The product weights packed for `plan`, made once per parameter set
-    and tile widths (the last few kept). An entry holds its source
-    tensors and is found only for those same tensors, unchanged since:
-    another set cannot take their addresses while the entry lives."""
+    and tile widths (the last few kept). An entry is found only for the
+    same source tensors, unchanged since. It holds them by weak
+    reference, so it keeps no set alive (weights gathered from model
+    shards for one eval included) and dies with its set: a set made
+    later at the same addresses packs anew."""
     jobs = {j.kind: j for js in plan.phases for j in js}
     names = [(n, kind) for kind, ns in PRODUCT_WEIGHTS.items() for n in ns]
     src = tuple(w[n] for n, _ in names)
     key = tuple((x._version, jobs[kind].nu) for x, (_, kind) in zip(src,
                                                                        names))
-    for held, k, packed in _packed:
-        if k == key and all(a is b for a, b in zip(held, src)):
+    for refs, k, packed in list(_packed):
+        if k == key and all(r() is x for r, x in zip(refs, src)):
             return packed
     with torch.no_grad():
         packed = {n: pack_weight(w[n], jobs[kind]) for n, kind in names}
-    _packed.append((src, key, packed))
+    _packed.append((tuple(weakref.ref(x, _forget_dead) for x in src), key,
+                    packed))
     del _packed[:-4]
     return packed
 

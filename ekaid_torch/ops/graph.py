@@ -2,8 +2,9 @@
 
 Counterpart of `ekaid_tpu/ops/graph.py`.
 
-* Device side (torch): the adjacency one-hot broadcast and the
-  geometric position features the GAT encoders consume.
+* Device side (torch): the adjacency one-hot broadcast, the
+  geometric position features the GAT encoders consume, and the
+  expert-knowledge semantic adjacency of a batch of class ids.
 * Host side (numpy): the spatial relation typing the synthetic data
   uses. Twelve labels: 0 disconnected, 1 i contains j, 2 i inside j,
   3 IoU >= 0.5, 4..11 the 45-degree sector from center(i) to center(j);
@@ -121,6 +122,33 @@ def broadcast_adjacency(adj_labels: torch.Tensor, num_labels: int,
         adj_labels = adj_labels[..., :num_objects, :num_objects]
     chans = torch.arange(1, num_labels + 1, device=adj_labels.device)
     return (adj_labels.long()[..., None] == chans).to(dtype)
+
+
+def semantic_adjacency(class_ids: torch.Tensor, organ_table: torch.Tensor,
+                       cooccur_table: torch.Tensor, is_disease: torch.Tensor,
+                       pad_to: int | None = None) -> torch.Tensor:
+    """Expert-knowledge semantic adjacency of the combined class ids
+    [..., N] (anatomy classes, then disease classes; `num_classes` is
+    the missing-node sentinel) -> [..., P, P] int32, P = pad_to or N.
+    Label 1 joins an anatomy and a disease node of one organ, label 2
+    is the co-occurrence table's (2 above its threshold, else 0), and 2
+    wins where both hold. organ_table [C+1] maps the sentinel to organ
+    -1, which takes no edges; is_disease [C+1] is bool."""
+    ids = class_ids.long()
+    organs = organ_table.to(ids.device)[ids]
+    disease = is_disease.to(ids.device)[ids]
+    valid = organs >= 0
+    same_organ = organs[..., :, None] == organs[..., None, :]
+    cross = disease[..., :, None] ^ disease[..., None, :]
+    both = valid[..., :, None] & valid[..., None, :]
+    organ_edge = (same_organ & cross & both).int()
+    co = cooccur_table.to(ids.device)[ids[..., :, None], ids[..., None, :]]
+    adj = torch.maximum(organ_edge,
+                        torch.where(both, co.int(), 0)).to(torch.int32)
+    n = adj.shape[-1]
+    if pad_to is not None and pad_to > n:
+        adj = torch.nn.functional.pad(adj, (0, pad_to - n, 0, pad_to - n))
+    return adj
 
 
 def position_matrix(boxes: torch.Tensor, nongt_dim: int = 52,

@@ -18,20 +18,31 @@ moves nothing. Updates are in place, with
 `torch._foreach_*` ops, so every parameter's version counter moves with
 each step (the decode weight caches key on it).
 
-Random draws are a function of (seed, step, microbatch, and the rank
+Random draws are a function of (seed, step, microbatch, and the index
 on a data axis of several processes): a resumed run draws what the
-uninterrupted run drew, and no generator state is saved.
+uninterrupted run drew, and no generator state is saved. The ranks of
+one model group share their data index, so their dropout masks on the
+replicated activations are equal.
 
 Data parallel (`train_step(..., ddp=...)`, `parallel/mesh.py`): each
-rank's batch is its part of the global batch. The loss is the
+data rank's batch is its part of the global batch. The loss is the
 reference's global-batch quantity: the answer NLL divided by the
 answer tokens of the whole global batch and the attention term by
-twice its pairs (both all-reduced), so each rank's term is its share
-of the global loss. DDP averages the gradients over the ranks, so each
-rank's term is scaled by the world size first: the all-reduced
-gradient is then the global loss's, on every rank, whatever the ranks'
-answer lengths. (Averaging per-rank mean losses would weight each
-rank's tokens by the inverse of its own token count.)
+twice its pairs (both all-reduced over the data group), so each rank's
+term is its share of the global loss. DDP averages the gradients over
+the data group, so each rank's term is scaled by the data axis's size
+first: the all-reduced gradient is then the global loss's, on every
+rank, whatever the ranks' answer lengths. (Averaging per-rank mean
+losses would weight each rank's tokens by the inverse of its own token
+count.)
+
+Tensor parallel (the model's mesh has a model axis over 1): the
+parameters that the mesh's rules shard hold this rank's block, and so
+do their gradients and optimizer slots; the update is elementwise, so
+each rank updates its blocks. The global norm (for grad_clip and the
+grad_norm metric) adds the blocks' squares over the model group. A
+state dict (`TrainState.state_dict`) holds full tensors, gathered over
+the model group, so a snapshot restores at any mesh.
 """
 
 from __future__ import annotations
@@ -43,13 +54,13 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
 from ekaid_torch.models.ekaid import total_loss
 from ekaid_torch.models.layers import WNDense, frobenius
 from ekaid_torch.parallel.mesh import all_reduce_sum
+from ekaid_torch.parallel.tensor import full_state, local_state, shards
 
 KINDS = ("adam", "sgd", "sgdm", "sgdmom", "rmsprop", "adagrad")
 ADAGRAD_INIT = 0.1
@@ -110,6 +121,8 @@ class Optimizer:
         self.schedule = schedule
         self.names = [n for n, _ in model.named_parameters()]
         self.params = [p for _, p in model.named_parameters()]
+        #: the parameters sharded over the model axis, by name
+        self.shards = shards(model)
         self.transition = (optim_cfg.step_size * steps_per_epoch
                            if steps_per_epoch else 0)
         self.count = 0
@@ -139,7 +152,7 @@ class Optimizer:
         c = self.cfg
         if c.grad_clip > 0:
             if grad_norm is None:
-                grad_norm = global_norm(grads)
+                grad_norm = self.global_norm(grads)
             under = grad_norm < c.grad_clip
             denom = torch.where(under, torch.ones_like(grad_norm), grad_norm)
             mult = torch.where(under, torch.ones_like(grad_norm),
@@ -184,6 +197,18 @@ class Optimizer:
                  for a, g in zip(s["acc"], grads)]
         torch._foreach_add_(self.params, u, alpha=-lr)
 
+    def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """`global_norm` of the full gradients: a sharded tensor's sum
+        of squares is summed over its model group first."""
+        if not self.shards:
+            return global_norm(grads)
+        sq = torch.stack([torch.sum(g.float() * g.float()) for g in grads])
+        sharded = torch.tensor([n in self.shards for n in self.names],
+                               device=sq.device)
+        group = next(iter(self.shards.values())).group
+        sq = torch.where(sharded, all_reduce_sum(sq * sharded, group), sq)
+        return frobenius(torch.sqrt(sq))
+
     def state_dict(self) -> dict:
         return {"count": self.count,
                 "slots": {k: dict(zip(self.names, v))
@@ -219,20 +244,33 @@ class TrainState:
     opt: Optimizer
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "params": self.model.state_dict(),
-                "opt": self.opt.state_dict()}
+        """The step, the parameters and the optimizer state, with full
+        tensors: sharded ones are gathered over the model group (every
+        rank of it must call this together)."""
+        by_name = self.opt.shards
+        opt = self.opt.state_dict()
+        opt["slots"] = {k: full_state(v, by_name)
+                        for k, v in opt["slots"].items()}
+        return {"step": self.step,
+                "params": full_state(self.model.state_dict(), by_name),
+                "opt": opt}
 
     def load_state_dict(self, sd: dict) -> None:
         """A file without "opt" holds parameters only (a converted
         reference checkpoint, `tools/torch_convert.py --kind model`):
-        the optimizer keeps the state it has."""
+        the optimizer keeps the state it has. Full tensors are cut to
+        this rank's blocks."""
         self.step = int(sd["step"])
         if "opt" not in sd:
             from ekaid_torch.tools.torch_convert import load_params
             load_params(self.model, sd["params"])
             return
-        self.model.load_state_dict(sd["params"])
-        self.opt.load_state_dict(sd["opt"])
+        by_name = self.opt.shards
+        self.model.load_state_dict(local_state(sd["params"], by_name))
+        self.opt.load_state_dict(
+            {"count": sd["opt"]["count"],
+             "slots": {k: local_state(v, by_name)
+                       for k, v in sd["opt"]["slots"].items()}})
 
 
 def init_state(model: nn.Module, optim_cfg,
@@ -244,8 +282,8 @@ def init_state(model: nn.Module, optim_cfg,
 def generator(seed: int, step: int, micro: int, stream: int,
               device, rank: int = 0) -> torch.Generator:
     """A generator on `device` seeded from (seed, step, microbatch,
-    stream) and, past rank 0 of a data axis, the rank alone (rank 0
-    draws what one process draws)."""
+    stream) and, past index 0 of a data axis, that index `rank` (index
+    0 draws what one process draws)."""
     entropy = [seed & 0xFFFFFFFF, step, micro, stream] + (
         [rank] if rank else [])
     words = np.random.SeedSequence(entropy).generate_state(2)
@@ -304,24 +342,30 @@ def train_step(state: TrainState, batch, seed: int,
     sampling. Each parameter's `.grad` holds this step's gradient (before
     clipping) until the next step.
 
-    ddp: `Forward(state.model)` wrapped by `parallel.mesh.wrap`; `batch`
-    is then this rank's part of the global batch, and the returned
-    losses and the gradients are the global batch's, equal on every
-    rank (see the module docstring)."""
+    ddp: `Forward(state.model)` wrapped by `parallel.mesh.wrap` on the
+    model's mesh; `batch` is then this data rank's part of the global
+    batch, and the returned losses and the gradients are the global
+    batch's, equal on every rank of the data group (see the module
+    docstring)."""
     model, opt = state.model, state.opt
     policy = model.policy
     b = model.tensors(batch, train=True)
     dev = model.device
-    world, rank = ((dist.get_world_size(), dist.get_rank())
-                   if ddp is not None else (1, 0))
+    mesh = model.mesh
+    if ddp is not None and mesh is None:
+        raise ValueError("a DDP step needs the model's mesh: build it "
+                         "with EkaidModel(..., mesh=parallel.mesh."
+                         "make_mesh(...))")
+    data, d, group = ((mesh.data, mesh.d, mesh.data_group)
+                      if ddp is not None else (1, 0, None))
 
     def loss_fn(mb, micro, lang_denom=None, batch_denom=None):
         gens = {}
         if train:
             gens = {"gen": generator(seed, state.step, micro, DROPOUT, dev,
-                                     rank),
+                                     d),
                     "ss_gen": generator(seed, state.step, micro, SAMPLE,
-                                        dev, rank)}
+                                        dev, d)}
         params = (_cast_params(model, policy) if param_cast
                   and policy.compute_dtype != torch.float32 else None)
         fwd = ddp if ddp is not None else Forward(model)
@@ -341,7 +385,7 @@ def train_step(state: TrainState, batch, seed: int,
         sums = torch.stack([b["masks"][:, 1:].float().sum(),
                             torch.tensor(float(B), device=dev)])
         if ddp is not None:
-            sums = all_reduce_sum(sums)
+            sums = all_reduce_sum(sums, group)
         lang_denom = torch.clamp(sums[0], min=1.0)
         batch_denom = sums[1] if ddp is not None else B
     loss, aux = 0.0, {}
@@ -352,18 +396,19 @@ def train_step(state: TrainState, batch, seed: int,
         with (ddp.no_sync() if ddp is not None and not last
               else contextlib.nullcontext()):
             li, ai = loss_fn(mb, i, lang_denom, batch_denom)
-            # DDP averages over the ranks: scale back to their sum
-            (li * world if world > 1 else li).backward()
+            # DDP averages over the data group: scale back to its sum
+            (li * data if data > 1 else li).backward()
         loss = loss + li.detach()
         for k, v in ai.items():
             aux[k] = aux.get(k, 0.0) + v.detach()
     if ddp is not None:
         keys = list(aux)
-        sums = all_reduce_sum(torch.stack([loss] + [aux[k] for k in keys]))
+        sums = all_reduce_sum(torch.stack([loss] + [aux[k] for k in keys]),
+                              group)
         loss, aux = sums[0], dict(zip(keys, sums[1:]))
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in opt.params]
-    gn = global_norm(grads)
+    gn = opt.global_norm(grads)
     opt.step(grads, gn)
     state.step += 1
     return {"total_loss": loss, **aux, "grad_norm": gn}

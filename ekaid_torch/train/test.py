@@ -9,11 +9,16 @@ seconds (%d pairs, %.2f pairs/s)") and each caption score.
     python -m ekaid_torch.train.test --synthetic --max_batches 2
     python -m ekaid_torch.train.test --synthetic --device cpu \
         --cfg configs/smoke.yaml --max_batches 1
+    torchrun --nproc_per_node 4 -m ekaid_torch.train.test -p <snapshots> \
+        mesh.model 2
 
 A checkpoint is the port's `<name>.pt` or the reference's orbax
 directory `<name>/` (`utils/checkpoint.py`; the orbax form needs
 tensorstore). It runs on the CUDA device and raises without one, unless
-`--device cpu` is asked for.
+`--device cpu` is asked for. Under `torchrun` it runs on the trainer's
+mesh (`train/train.py`): each rank restores its blocks of the
+checkpoint, the greedy decode splits every batch's rows over the data
+axis, and rank 0 alone prints, scores and writes the results.
 """
 
 from __future__ import annotations
@@ -23,7 +28,10 @@ import json
 import os
 import time
 
+import torch
+
 from ekaid_torch.config import default_config, load_config
+from ekaid_torch.parallel.mesh import init_from_env
 from ekaid_torch.train.train import (Trainer, build_synthetic_trainer,
                                      build_trainer)
 from ekaid_torch.utils.checkpoint import CheckpointManager
@@ -38,16 +46,20 @@ def run_test(trainer: Trainer, checkpoint_dir: str = None,
     `checkpoint_dir` when given, cast the params for inference once,
     evaluate, print the time and scores and write the results JSON to
     `out_path`. Returns (scores, predictions)."""
+    lead = trainer.lead
     if checkpoint_dir:
         CheckpointManager(checkpoint_dir).restore(trainer.state,
                                                   name=checkpoint_name)
-        print(f"Loaded checkpoint step {int(trainer.state.step)}")
+        if lead:
+            print(f"Loaded checkpoint step {int(trainer.state.step)}")
     cast_params_for_inference(trainer.model,
                               Policy.from_config(trainer.cfg.dtypes))
     t0 = time.time()
     scores, predictions = trainer.evaluate(max_batches=max_batches,
                                            beam_size=beam_size)
     elapsed = time.time() - t0
+    if not lead:
+        return scores, predictions
     n = len(predictions)
     print("Test took %.4f seconds (%d pairs, %.2f pairs/s)"
           % (elapsed, n, n / max(elapsed, 1e-9)))
@@ -85,7 +97,8 @@ def main(argv=None):
     p.add_argument("overrides", nargs="*", metavar="KEY VALUE",
                    help="trailing dotted-key config overrides")
     a = p.parse_args(argv)
-    device = resolve_device(a.device)
+    # under torchrun: join the group, on cuda:LOCAL_RANK
+    device = resolve_device(init_from_env(a.device))
 
     cfg = load_config(a.cfg) if a.cfg else default_config()
     if a.overrides:
@@ -103,6 +116,9 @@ def main(argv=None):
     out = a.out or os.path.join(a.workdir, f"test_results_{a.split}.json")
     run_test(trainer, a.checkpoint_dir, a.checkpoint, out, a.max_batches,
              beam_size=a.beam_size)
+    if trainer.mesh.distributed:
+        trainer.barrier()
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -5,6 +5,8 @@
     python -m ekaid_torch.train.train --synthetic --device cpu \
         --cfg configs/smoke.yaml --max_iter 4 --snapshot_interval 2
     torchrun --nproc_per_node 2 -m ekaid_torch.train.train --synthetic
+    torchrun --nproc_per_node 4 -m ekaid_torch.train.train --synthetic \
+        mesh.model 2
 
 The loop: per epoch the scheduled-sampling probability, then per batch
 one `train_step`, a log line every `log_interval` steps, and every
@@ -23,24 +25,34 @@ the exact batch where the run stopped. `evaluate(beam_size > 1)`
 decodes with beam search (`EkaidModel.decode_beam`, plain torch) from
 the loader's wire batches.
 
-Data parallel: under `torchrun` (or any joined `torch.distributed`
-group) the model trains in DDP over the group's processes, one device
-each (`parallel/mesh.py`); `mesh.data` of -1 or the world size is that
-group, anything else raises, and so does `mesh.model` other than 1.
-Each rank reads `train.batch_size / world` pairs a step: the Loader's
-shard `rank` of `world` takes every world-th pair of the epoch's
-shuffled order, so the ranks' batches of step i are together exactly
-the one-process batch i of `train.batch_size` pairs, the reference's
-global batch. Length buckets apply with one process only (each rank
-would pick its own). The loss is the global batch's
-(`train/step.py`). Rank 0 alone evaluates, logs, writes snapshots and
+The mesh: under `torchrun` (or any joined `torch.distributed` group)
+the group's processes, one device each, form a data x model grid
+(`parallel/mesh.py`): `mesh.model` must divide the world, and
+`mesh.data` is -1 or world / model, else it raises. The model's
+rule-matched parameters and their optimizer slots hold the rank's block
+of the model axis (`parallel/tensor.py`), and the model trains in DDP
+over the data group. Each rank reads `train.batch_size / data` pairs a
+step: the Loader's shard d of `data` (the rank's data index) takes
+every data-th pair of the epoch's shuffled order, so the data ranks'
+batches of step i are together exactly the one-process batch i of
+`train.batch_size` pairs, the reference's global batch, and the ranks
+of a model group read the same pairs. Length buckets apply with one
+process only (each rank would pick its own). The loss is the global
+batch's (`train/step.py`). At a snapshot every rank gathers the full
+state (a collective of its model group) and every rank evaluates: a
+greedy decode splits each eval batch's rows over the data axis, each
+rank decodes its block (K1 on the card) and the blocks are gathered
+(`EkaidModel.decode`); beam search decodes the whole batch on every
+rank. Rank 0 alone detokenizes, scores, logs and writes snapshots and
 the workdir's files; the ranks meet at a barrier after each snapshot.
+The device image cache is off with more than one process.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
 import time
@@ -94,11 +106,12 @@ class Trainer:
                  vocab: Vocabulary, gt_annotations: Optional[dict] = None,
                  device="cuda"):
         self.device = resolve_device(device)
-        self.axis = dp.data_axis(cfg.mesh, self.device)
-        self.lead = self.axis.rank == 0
-        if train_ds.batch_size % self.axis.world:
+        self.mesh = dp.make_mesh(cfg.mesh, self.device)
+        self.lead = self.mesh.rank == 0
+        if train_ds.batch_size % self.mesh.data:
             raise ValueError(f"train batch {train_ds.batch_size} does not "
-                             f"split over {self.axis.world} ranks")
+                             f"split over the {self.mesh.data} ranks of "
+                             "the data axis")
         self.workdir = workdir
         os.makedirs(workdir, exist_ok=True)
         # the answer vocabulary's size comes from the data; the decode
@@ -117,13 +130,15 @@ class Trainer:
         self.gt_annotations = gt_annotations
         self.model = EkaidModel(cfg, ntoken=len(vocab.word_to_idx),
                                 policy=Policy.from_config(cfg.dtypes),
-                                device=self.device, seed=cfg.train.seed)
+                                device=self.device, seed=cfg.train.seed,
+                                mesh=(self.mesh if self.mesh.distributed
+                                      else None))
         self.steps_per_epoch = max(1, len(train_ds) // train_ds.batch_size)
         self.state = init_state(self.model, cfg.train.optim,
                                 self.steps_per_epoch)
         #: the DDP-wrapped training forward when a group is joined
-        self.ddp = (dp.wrap(Forward(self.model), self.axis)
-                    if self.axis.distributed else None)
+        self.ddp = (dp.wrap(Forward(self.model), self.mesh)
+                    if self.mesh.distributed else None)
         self.ckpt = CheckpointManager(os.path.join(workdir, "snapshots"))
         self.stop_requested = False
         self.best = self.ckpt.best_metric()
@@ -151,12 +166,16 @@ class Trainer:
         signal.signal(signal.SIGINT, _request_stop)
 
     def _dump_model_print(self):
-        """<workdir>/model_print: each parameter's name, shape and dtype,
-        and the total count."""
+        """<workdir>/model_print: each parameter's name, full shape and
+        dtype (a sharded one's blocks joined), and the total count."""
         lines, total = [], 0
+        by_name = self.state.opt.shards
         for name, p in self.model.named_parameters():
-            lines.append(f"{name}  {tuple(p.shape)}  {p.dtype}")
-            total += p.numel()
+            shape = list(p.shape)
+            if name in by_name:
+                shape[by_name[name].dim] = by_name[name].size
+            lines.append(f"{name}  {tuple(shape)}  {p.dtype}")
+            total += math.prod(shape)
         lines.append(f"total parameters: {total:,}")
         with open(os.path.join(self.workdir, "model_print"), "w") as f:
             f.write("\n".join(lines) + "\n")
@@ -170,15 +189,15 @@ class Trainer:
         t = self.state.step
         epoch = t // self.steps_per_epoch
         last_metrics: Dict = {}
-        world = self.axis.world
-        # each rank's shard of every global batch (see the docstring)
+        data = self.mesh.data
+        # each data rank's shard of every global batch (see the docstring)
         loader = Loader(self.train_ds,
-                        batch_size=self.train_ds.batch_size // world,
+                        batch_size=self.train_ds.batch_size // data,
                         shuffle=True, seed=cfg.train.seed,
                         num_threads=cfg.data.num_workers,
                         prefetch=cfg.data.prefetch,
-                        shard_index=self.axis.rank, num_shards=world)
-        buckets = cfg.train.length_buckets if world == 1 else ()
+                        shard_index=self.mesh.d, num_shards=data)
+        buckets = cfg.train.length_buckets if self.mesh.world == 1 else ()
         # exact mid-epoch resume: the restored epoch's permutation, less
         # the batches already taken
         loader.epoch = epoch
@@ -202,8 +221,9 @@ class Trainer:
             ss_prob = ss_prob_for_epoch(cfg, epoch)
             for batch in device_batches():
                 if self.stop_requested:
+                    sd = self.state.state_dict()
                     if self.lead:
-                        self.ckpt.save(self.state, config_dict=cfg.to_dict())
+                        self.ckpt.save(sd, config_dict=cfg.to_dict())
                         print(f"preempted at iter {t}: checkpoint saved; "
                               f"resume with --resume")
                     return last_metrics
@@ -227,8 +247,7 @@ class Trainer:
                     self.logger.log(t, m, prefix="train/")
                     last_metrics = m
                 if t % cfg.train.snapshot_interval == 0:
-                    if self.lead:
-                        self.snapshot_and_eval(t, max_batches=eval_fraction)
+                    self.snapshot_and_eval(t, max_batches=eval_fraction)
                     self.barrier()
                 if t >= cfg.train.max_iter:
                     break
@@ -237,15 +256,22 @@ class Trainer:
 
     def barrier(self) -> None:
         """Wait for every rank (nothing to wait for without a group)."""
-        if self.axis.distributed:
+        if self.mesh.distributed:
             torch.distributed.barrier()
 
     # ------------------------------------------------------------- eval ---
 
     def snapshot_and_eval(self, t: int,
                           max_batches: Optional[int] = None) -> Dict:
-        self.ckpt.save(self.state, config_dict=self.cfg.to_dict())
+        """On every rank together: the full state is gathered and every
+        rank evaluates; rank 0 alone writes, scores and logs (the other
+        ranks return empty scores)."""
+        sd = self.state.state_dict()
+        if self.lead:
+            self.ckpt.save(sd, config_dict=self.cfg.to_dict())
         scores, predictions = self.evaluate(max_batches=max_batches)
+        if not self.lead:
+            return scores
         print(f"eval @ {t}: "
               + " ".join(f"{k}={v:.3f}" for k, v in scores.items()))
         self.logger.log(t, scores, prefix="eval/")
@@ -256,7 +282,7 @@ class Trainer:
                        for k, v in predictions.items()], f)
         if scores.get("Bleu_1", 0.0) > self.best:
             self.best = scores["Bleu_1"]
-            self.ckpt.save_best(self.state, self.best,
+            self.ckpt.save_best(sd, self.best,
                                 config_dict=self.cfg.to_dict())
             print("Best checkpoint saved")
         return scores
@@ -283,7 +309,10 @@ class Trainer:
         feed the greedy decode from the device image cache (default:
         when data.eval_device_cache > 0) or from the loader's compact
         wire batches; both give the same tokens. Beam search reads the
-        wire batches."""
+        wire batches, and so does every eval with more than one process.
+        Every rank of a mesh calls this together (the decodes are
+        collectives); rank 0 alone detokenizes and scores, and the
+        other ranks return ({}, {})."""
         cfg = self.cfg
         decode = self.model.decode
         if beam_size > 1:
@@ -294,6 +323,8 @@ class Trainer:
                         prefetch=cfg.data.prefetch, wire=cfg.data.eval_wire)
         if use_cache is None:
             use_cache = cfg.data.eval_device_cache > 0
+        # the cache's slots are this process's: a mesh reads the wire
+        use_cache = use_cache and self.mesh.world == 1
         # the cache holds graph features: mode0 reads the wire batches
         if use_cache and beam_size == 1 and cfg.data.feature_mode != "mode0":
             batches = self._cached_batches(
@@ -304,6 +335,8 @@ class Trainer:
         predictions: Dict[str, str] = {}
 
         def flush(pair_index, out):
+            if not self.lead:
+                return
             seqs = out["seq"].cpu().numpy()
             for j, row in enumerate(seqs):
                 predictions[str(int(pair_index[j]))] = self.vocab.decode(row)
@@ -320,6 +353,8 @@ class Trainer:
         if pending is not None:
             flush(*pending)
 
+        if not self.lead:
+            return {}, predictions
         if not predictions:
             return {k: 0.0 for k in CaptionEvaluator.METRICS}, predictions
         gts = self._gt_annotations(predictions)
@@ -450,10 +485,10 @@ def main(argv=None):
     trainer.install_preemption_handler()
     trainer.train(eval_fraction=a.eval_batches)
     # preempted: the checkpoint is saved; skip the final eval
-    if not trainer.stop_requested and trainer.lead:
+    if not trainer.stop_requested:
         trainer.snapshot_and_eval(trainer.state.step,
                                   max_batches=a.eval_batches)
-    if trainer.axis.distributed:
+    if trainer.mesh.distributed:
         trainer.barrier()
         torch.distributed.destroy_process_group()
 

@@ -39,12 +39,14 @@ class CheckpointManager:
 
     def save(self, state, name: Optional[str] = None,
              config_dict: Optional[dict] = None) -> str:
-        """Write `state` (a TrainState) as <name>.pt, name defaulting to
-        its step, through a temporary file so a reader never sees half a
-        checkpoint."""
-        name = name if name is not None else int(state.step)
+        """Write `state` (a TrainState, or what its `state_dict()` gave:
+        on a mesh, the full tensors gathered by every rank of a model
+        group) as <name>.pt, name defaulting to its step, through a
+        temporary file so a reader never sees half a checkpoint."""
+        sd = state if isinstance(state, dict) else state.state_dict()
+        name = name if name is not None else int(sd["step"])
         path = self._path(name)
-        torch.save(state.state_dict(), path + ".tmp")
+        torch.save(sd, path + ".tmp")
         os.replace(path + ".tmp", path)
         if config_dict is not None:
             with open(os.path.join(self.directory, "cfg.json"), "w") as f:
@@ -55,10 +57,11 @@ class CheckpointManager:
     def save_best(self, state, metric: float,
                   config_dict: Optional[dict] = None) -> str:
         """The best checkpoint, keyed on Bleu_1."""
-        path = self.save(state, name="best", config_dict=config_dict)
+        sd = state if isinstance(state, dict) else state.state_dict()
+        path = self.save(sd, name="best", config_dict=config_dict)
         with open(os.path.join(self.directory, "best_metric.json"),
                   "w") as f:
-            json.dump({"Bleu_1": metric, "step": int(state.step)}, f)
+            json.dump({"Bleu_1": metric, "step": int(sd["step"])}, f)
         return path
 
     def best_metric(self) -> float:
@@ -71,7 +74,8 @@ class CheckpointManager:
     def restore(self, state, name: Optional[str] = None):
         """Load checkpoint `name` (default: the latest step) into
         `state` in place, onto its model's device; returns it. `<name>.pt`
-        first, else the reference's orbax directory `<name>/`."""
+        first, else the reference's orbax directory `<name>/`. The file
+        holds full tensors; a sharded model takes its blocks of them."""
         if name is None:
             name = self.latest_step()
             if name is None:

@@ -39,11 +39,12 @@ def rank_step(rank: int, world: int, init_file: str, inputs: str,
         with open(inputs, "rb") as f:
             d = pickle.load(f)
         cfg = load_config(overrides=d["cfg"])
+        grid = mesh.make_mesh(cfg.mesh, "cpu")
         model = load_flax_params(EkaidModel(cfg, d["ntoken"], policy=F32,
-                                            device="cpu", seed=None),
-                                 d["tree"])
+                                            device="cpu", seed=None,
+                                            mesh=grid), d["tree"])
         state = init_state(model, cfg.train.optim)
-        ddp = mesh.wrap(Forward(model), mesh.data_axis(cfg.mesh, "cpu"))
+        ddp = mesh.wrap(Forward(model), grid)
         part = {k: v[rank::world] for k, v in d["batch"].items()}
         m = train_step(state, part, 0, ATT_REG, train=False, ddp=ddp)
         torch.save({"metrics": {k: float(v) for k, v in m.items()},

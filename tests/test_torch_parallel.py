@@ -192,19 +192,20 @@ def test_per_rank_mean_averaging_misses_the_bound(setup):
 
 
 @pytest.mark.parametrize("axes,error,msg", [
-    ({"model": 2}, NotImplementedError, "'model' axis"),
+    ({"model": 2}, ValueError, "mesh.model=2 does not divide the 1 process"),
     ({"data": 2}, ValueError, "mesh.data=2 but the data axis has 1"),
     ({"data": 0}, ValueError, "mesh.data=0"),
 ])
 def test_data_axis_refuses(axes, error, msg):
     with pytest.raises(error, match=msg):
-        mesh.data_axis(MeshConfig(**axes), "cpu")
+        mesh.make_mesh(MeshConfig(**axes), "cpu")
 
 
 @pytest.mark.parametrize("data", [-1, 1])
 def test_data_axis_of_one_process(data):
-    axis = mesh.data_axis(MeshConfig(data=data), "cpu")
+    axis = mesh.make_mesh(MeshConfig(data=data), "cpu")
     assert (axis.rank, axis.world, axis.distributed) == (0, 1, False)
+    assert (axis.data, axis.model, axis.d, axis.m) == (1, 1, 0, 0)
 
 
 def test_dp_extraction_over_two_cpu_replicas():

@@ -100,3 +100,31 @@ def test_decode_after_a_step_uses_that_steps_weights(dtype):
     for k in ("seq", "logprobs", "module_weights"):
         assert torch.equal(after[k], want[k]), k
     assert not torch.equal(after["logprobs"], before["logprobs"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_packed_weights_keep_no_set_alive(dtype):
+    """The packed cache holds its sets by weak reference: once the
+    speaker's decode weights are rebuilt (as after a step, or a fresh
+    gather of sharded weights), the old set and its packed copies go;
+    the new set packs anew."""
+    import gc
+    import weakref
+    cfg, model = _model(dtype)
+    sp = model.speaker
+    plan = _plan(cfg, 4 if dtype == "float32" else 2)
+    gd._packed.clear()
+    w0 = gd.decode_weights(sp, cfg.speaker, model.policy)
+    p0 = gd._packed_weights(w0, plan)
+    gone = weakref.ref(p0["wlogit"])
+    del p0
+    assert len(gd._packed) == 1 and gone() is not None
+    w1 = gd.decode_weights(sp, cfg.speaker, model.policy)
+    p1 = gd._packed_weights(w1, plan)
+    assert len(gd._packed) == 2
+    del w0
+    gc.collect()
+    assert gone() is None
+    assert len(gd._packed) == 1
+    assert gd._packed_weights(w1, plan) is p1
+    gd._packed.clear()

@@ -237,11 +237,11 @@ def test_trainer_and_main_need_a_card_unless_asked_for_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("axis,error,msg", [
-    ("model", NotImplementedError, "'model' axis"),
+    ("model", ValueError, "mesh.model=2 does not divide the 1 process"),
     ("data", ValueError, "mesh.data=2 but the data axis has 1")])
 def test_trainer_refuses_a_mesh(tmp_path, axis, error, msg):
-    """The 'model' axis is not ported; a data axis the process group
-    does not have (one process here) raises."""
+    """A model axis or a data axis that the process group does not have
+    (one process here) raises."""
     cfg = _cfg(max_iter=1)
     cfg = cfg.replace(mesh=cfg.mesh.replace(**{axis: 2}))
     with pytest.raises(error, match=msg):
