@@ -157,7 +157,7 @@ Phases, each fatal on failure:
      memory, eval images/s, one step under torch.profiler. K2's
      launches here add to its `kernels` entry;
  13. from raw files to answers, through `ekaid_torch.tools.pipeline.main`
-     with each stage timed by `StepTimer` (the flagship detectors at
+     with each stage timed by the host clock (the flagship detectors at
      1024^2, the `load_config()` VQA widths at bf16; steps cut): (a)
      `--stage all --synthetic 16` (detectors 4 steps, VQA 8 iterations):
      every stage's artifact there, every logged loss finite, one test
@@ -3021,11 +3021,11 @@ class Patches:
 
 class PipelineProbe(Patches):
     """Watches the stage pipeline from outside: each stage entry point
-    timed with `StepTimer` (seconds, and K1's and K2's launches within),
-    the greedy decodes counted (and, with `check_step0`, each held
-    against the plain decode on fresh weights), the detector trainer's
-    eval batches counted and its losses kept, and the test stage's
-    predictions and split size kept. Every train step's losses (VQA and
+    timed by the host clock (seconds, and K1's and K2's launches
+    within), the greedy decodes counted (and, with `check_step0`, each
+    held against the plain decode on fresh weights), the detector
+    trainer's eval batches counted and its losses kept, and the test
+    stage's predictions and split size kept. Every train step's losses (VQA and
     detector) are read back as they come."""
 
     def __init__(self, check_step0: bool = False):
@@ -3093,16 +3093,14 @@ class PipelineProbe(Patches):
         self.set(tst, "run_test", kept_test)
 
     def _timed(self, stage, fn):
-        from ekaid_torch.utils.observability import StepTimer
-
         def run(*a, **kw):
             k1, k2 = self.k1.launches, self.k2.launches
-            timer = StepTimer()
-            with timer:
-                out = fn(*a, **kw)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            dt = time.perf_counter() - t0
             s = self.stages.setdefault(stage, {"s": 0.0, "calls": 0,
                                                "k1": 0, "k2": 0})
-            s["s"] += timer.last
+            s["s"] += dt
             s["calls"] += 1
             s["k1"] += self.k1.launches - k1
             s["k2"] += self.k2.launches - k2

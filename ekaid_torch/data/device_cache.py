@@ -15,7 +15,9 @@ its question tokens, its slot ids and the rows it misses.
   * `gather_batch` builds the decode's [B, ...] inputs on the device by
     slot index: exactly the tensors the compact wire would carry.
 Slots are assigned on the host, least recently used first out (never a
-row of the batch being resolved).
+row of the batch being resolved). While a profiler records, each
+batch's hits and misses are also added to the counters
+`ekaid.cache.hits` and `ekaid.cache.misses` (`utils/observability`).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ekaid_torch.utils.device import host_to_device
+from ekaid_torch.utils.observability import count
 
 __all__ = ["DeviceEvalCache"]
 
@@ -83,10 +86,12 @@ class DeviceEvalCache:
         for i in uniq:
             if i in self._slot_of:
                 self._slot_of.move_to_end(i)
-                self.hits += 1
             else:
                 miss.append(i)
-                self.misses += 1
+        self.hits += len(uniq) - len(miss)
+        self.misses += len(miss)
+        count("ekaid.cache.hits", len(uniq) - len(miss))
+        count("ekaid.cache.misses", len(miss))
         if miss:
             in_batch = set(uniq)
             for i in miss:

@@ -39,6 +39,7 @@ from ekaid_torch.ops.graph import broadcast_adjacency
 from ekaid_torch.parallel.tensor import gather, shard_parameters
 from ekaid_torch.utils.device import resolve_device
 from ekaid_torch.utils.dtypes import F32, Policy
+from ekaid_torch.utils.observability import span
 
 _INPUTS = ("d_feats", "q_feats", "d_adj", "q_adj", "d_sem_adj", "q_sem_adj",
            "d_bb", "q_bb", "question")
@@ -143,11 +144,13 @@ class EkaidModel(nn.Module):
         b = self.tensors(batch)
         if split:
             b = self._rows_of_this_rank(b)
-        enc = self._encode(b)
-        dec = self.speaker.sample(enc["feat_bef"], enc["feat_aft"],
-                                  enc["feat_diff"], sample_max=sample_max,
-                                  temperature=temperature, gumbel=gumbel,
-                                  gen=gen, early_exit=early_exit)
+        with span("ekaid.decode.encode"):
+            enc = self._encode(b)
+        with span("ekaid.decode.sample"):
+            dec = self.speaker.sample(
+                enc["feat_bef"], enc["feat_aft"], enc["feat_diff"],
+                sample_max=sample_max, temperature=temperature,
+                gumbel=gumbel, gen=gen, early_exit=early_exit)
         out = {**enc, **dec}
         if split:
             out = {k: gather(v, mesh.data_group, 0) for k, v in out.items()}

@@ -9,6 +9,7 @@ seconds (%d pairs, %.2f pairs/s)") and each caption score.
     python -m ekaid_torch.train.test --synthetic --max_batches 2
     python -m ekaid_torch.train.test --synthetic --device cpu \
         --cfg configs/smoke.yaml --max_batches 1
+    python -m ekaid_torch.train.test --synthetic --profile build/prof
     torchrun --nproc_per_node 4 -m ekaid_torch.train.test -p <snapshots> \
         mesh.model 2
 
@@ -19,11 +20,16 @@ tensorstore). It runs on the CUDA device and raises without one, unless
 mesh (`train/train.py`): each rank restores its blocks of the
 checkpoint, the greedy decode splits every batch's rows over the data
 axis, and rank 0 alone prints, scores and writes the results.
+`--profile DIR` traces the restore and the eval (rank 0's) with
+torch.profiler into `DIR/trace.json` (`utils/observability.profile`),
+the eval's spans (`ekaid.eval.*`, `ekaid.decode.*`) among its host
+events.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -37,6 +43,7 @@ from ekaid_torch.train.train import (Trainer, build_synthetic_trainer,
 from ekaid_torch.utils.checkpoint import CheckpointManager
 from ekaid_torch.utils.device import resolve_device
 from ekaid_torch.utils.dtypes import Policy, cast_params_for_inference
+from ekaid_torch.utils.observability import profile
 
 
 def run_test(trainer: Trainer, checkpoint_dir: str = None,
@@ -94,6 +101,9 @@ def main(argv=None):
                    help="decode batch (default: the config's test batch)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run to "
+                        "DIR/trace.json")
     p.add_argument("overrides", nargs="*", metavar="KEY VALUE",
                    help="trailing dotted-key config overrides")
     a = p.parse_args(argv)
@@ -114,8 +124,10 @@ def main(argv=None):
     else:
         trainer = build_trainer(cfg, a.workdir, a.split, device=device)
     out = a.out or os.path.join(a.workdir, f"test_results_{a.split}.json")
-    run_test(trainer, a.checkpoint_dir, a.checkpoint, out, a.max_batches,
-             beam_size=a.beam_size)
+    traced = a.profile and trainer.lead
+    with profile(a.profile) if traced else contextlib.nullcontext():
+        run_test(trainer, a.checkpoint_dir, a.checkpoint, out,
+                 a.max_batches, beam_size=a.beam_size)
     if trainer.mesh.distributed:
         trainer.barrier()
         torch.distributed.destroy_process_group()

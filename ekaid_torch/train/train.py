@@ -76,6 +76,7 @@ from ekaid_torch.utils.checkpoint import CheckpointManager
 from ekaid_torch.utils.device import host_to_device, resolve_device
 from ekaid_torch.utils.dtypes import Policy
 from ekaid_torch.utils.logging import MetricsLogger
+from ekaid_torch.utils.observability import span
 from ekaid_torch.utils.platform import resolve_decode_kernel
 
 __all__ = ["Trainer", "build_synthetic_trainer", "build_trainer",
@@ -296,11 +297,27 @@ class Trainer:
                 self.eval_ds, capacity=cache_slots, device=self.device)
         cache = self._eval_cache
         for idxs in loader._batch_indices():
-            d_slots, q_slots = cache.ensure(idxs)
-            q = host_to_device(self.eval_ds.questions[idxs].astype(np.int32),
-                               self.device)
-            yield idxs, cache.gather_batch(cache.dev_arrays(), d_slots,
+            with span("ekaid.eval.inputs"):
+                d_slots, q_slots = cache.ensure(idxs)
+                q = host_to_device(
+                    self.eval_ds.questions[idxs].astype(np.int32),
+                    self.device)
+                batch = cache.gather_batch(cache.dev_arrays(), d_slots,
                                            q_slots, q)
+            yield idxs, batch
+
+    def _wire_batches(self, loader):
+        """(pair indices, decode inputs) of each eval batch, from the
+        loader's wire batches: the wait on its queue and the copy to the
+        device in one span a batch."""
+        it = iter(loader)
+        while True:
+            with span("ekaid.eval.inputs"):
+                b = next(it, None)
+                batch = None if b is None else to_device(b, self.device)
+            if b is None:
+                return
+            yield b["pair_index"], batch
 
     def evaluate(self, max_batches: Optional[int] = None,
                  beam_size: int = 1, use_cache: Optional[bool] = None):
@@ -312,7 +329,9 @@ class Trainer:
         wire batches, and so does every eval with more than one process.
         Every rank of a mesh calls this together (the decodes are
         collectives); rank 0 alone detokenizes and scores, and the
-        other ranks return ({}, {})."""
+        other ranks return ({}, {}). Under a profiler, spans name each
+        batch's inputs, decode, fetch and detokenizing, and the scoring
+        (`ekaid.eval.*`, `utils/observability.span`)."""
         cfg = self.cfg
         decode = self.model.decode
         if beam_size > 1:
@@ -330,23 +349,26 @@ class Trainer:
             batches = self._cached_batches(
                 loader, max(1, cfg.data.eval_device_cache))
         else:
-            batches = ((b["pair_index"], to_device(b, self.device))
-                       for b in loader)
+            batches = self._wire_batches(loader)
         predictions: Dict[str, str] = {}
 
         def flush(pair_index, out):
             if not self.lead:
                 return
-            seqs = out["seq"].cpu().numpy()
-            for j, row in enumerate(seqs):
-                predictions[str(int(pair_index[j]))] = self.vocab.decode(row)
+            with span("ekaid.eval.fetch"):
+                seqs = out["seq"].cpu().numpy()
+            with span("ekaid.eval.detok"):
+                for j, row in enumerate(seqs):
+                    predictions[str(int(pair_index[j]))] = \
+                        self.vocab.decode(row)
 
         # batch i is read back only once batch i + 1 is queued
         pending = None
         for i, (idxs, batch) in enumerate(batches):
             if max_batches is not None and i >= max_batches:
                 break
-            nxt = (idxs, decode(batch))
+            with span("ekaid.eval.decode"):
+                nxt = (idxs, decode(batch))
             if pending is not None:
                 flush(*pending)
             pending = nxt
@@ -357,17 +379,18 @@ class Trainer:
             return {}, predictions
         if not predictions:
             return {k: 0.0 for k in CaptionEvaluator.METRICS}, predictions
-        gts = self._gt_annotations(predictions)
-        res = CocoCaptions(annotations={"annotations": [
-            {"image_id": k, "caption": v, "id": k}
-            for k, v in predictions.items()]})
-        scores = CaptionEvaluator(CocoCaptions(annotations=gts),
-                                  res).evaluate()
-        results = [{"image_id": k, "caption": v}
-                   for k, v in predictions.items()]
-        total, open_a, closed = accuracy(gts, results, verbose=False)
-        scores.update({"acc_total": total, "acc_open": open_a,
-                       "acc_closed": closed})
+        with span("ekaid.eval.score"):
+            gts = self._gt_annotations(predictions)
+            res = CocoCaptions(annotations={"annotations": [
+                {"image_id": k, "caption": v, "id": k}
+                for k, v in predictions.items()]})
+            scores = CaptionEvaluator(CocoCaptions(annotations=gts),
+                                      res).evaluate()
+            results = [{"image_id": k, "caption": v}
+                       for k, v in predictions.items()]
+            total, open_a, closed = accuracy(gts, results, verbose=False)
+            scores.update({"acc_total": total, "acc_open": open_a,
+                           "acc_closed": closed})
         return scores, predictions
 
     def _gt_annotations(self, predictions) -> dict:

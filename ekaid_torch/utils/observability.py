@@ -1,51 +1,93 @@
-"""Step timing, profiling and the numerical sanitizer (counterpart of
+"""Spans, profiling and the numerical sanitizer (counterpart of
 `ekaid_tpu/utils/observability.py`).
 
-  * `StepTimer`: per-step wall clock and an EMA of it, with items/s.
+  * `span(name)`: a named host range. While a `torch.profiler` records,
+    it is a FUNCTION-scope record in the profiler's own trace (on the
+    clock of the CUDA activity, and not copied onto the device
+    timeline, as a `record_function` annotation is), and its host time
+    is added up by name; `count(name, n)` adds to a counter in the same
+    way. `recorded()` reads both, `reset_recorded()` clears them. With
+    no profiler recording, `span` returns one shared no-op context
+    after a single flag check, and `count` returns at once.
   * `profile`: a `torch.profiler` trace of the CPU, and of the CUDA
     device when one is present, written into `logdir` as a Chrome trace
     (`trace.json`; open it in Perfetto or chrome://tracing).
   * `enable_nan_debugging`: `torch.autograd.set_detect_anomaly`, which
     raises at the first backward op that produces NaN, naming the
     forward op that made it.
-  * `log_compile_time`: the first call apart from the steady state. The
-    port compiles nothing at run time but its kernels, which nvcc builds
-    at their first use (`ekaid_torch/kernels.py`); CUDA results are
-    synchronised before the clock stops.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
-from typing import Callable, Optional
+from typing import Dict, List
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+_RecordFunctionFast = getattr(torch._C._profiler, "_RecordFunctionFast",
+                              None)
+_lock = threading.Lock()
+#: name -> [count, host ns] of the spans closed while recording
+_spans: Dict[str, List[int]] = {}
+_counts: Dict[str, int] = {}
 
 
-class StepTimer:
-    """EMA step timing + items/s; use as `with timer: step()`."""
+class _Span:
+    __slots__ = ("name", "_record", "_t0")
 
-    def __init__(self, alpha: float = 0.05):
-        self.alpha = alpha
-        self.ema: Optional[float] = None
-        self.last: Optional[float] = None
-        self._t0: Optional[float] = None
+    def __init__(self, name: str):
+        self.name = name
+        self._record = (_RecordFunctionFast(name) if _RecordFunctionFast
+                        else _OFF)
 
     def __enter__(self):
-        self._t0 = time.perf_counter()
+        self._record.__enter__()
+        self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
-        self.ema = dt if self.ema is None else (
-            self.alpha * dt + (1 - self.alpha) * self.ema)
-        self.last = dt
+        dt = time.perf_counter_ns() - self._t0
+        self._record.__exit__(*exc)
+        with _lock:
+            rec = _spans.setdefault(self.name, [0, 0])
+            rec[0] += 1
+            rec[1] += dt
         return False
 
-    def throughput(self, items: int) -> float:
-        return items / self.ema if self.ema else float("nan")
+
+def span(name: str):
+    """`with span("ekaid.eval.score"): ...`: see the module's doc."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter `name` while a profiler records."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    with _lock:
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def recorded() -> dict:
+    """{"spans": {name: {"count", "host_s"}}, "counts": {name: n}}: what
+    the spans and counters added up since the last reset."""
+    with _lock:
+        return {"spans": {k: {"count": c, "host_s": t / 1e9}
+                          for k, (c, t) in _spans.items()},
+                "counts": dict(_counts)}
+
+
+def reset_recorded() -> None:
+    with _lock:
+        _spans.clear()
+        _counts.clear()
 
 
 @contextlib.contextmanager
@@ -68,30 +110,3 @@ def enable_nan_debugging(enable: bool = True):
     """Anomaly detection for every later backward pass (slow; for
     debugging only)."""
     torch.autograd.set_detect_anomaly(enable)
-
-
-def _synchronize(out) -> None:
-    tensors = (out if isinstance(out, (list, tuple))
-               else list(out.values()) if isinstance(out, dict) else [out])
-    devices = {t.device for t in tensors
-               if isinstance(t, torch.Tensor) and t.is_cuda}
-    for d in devices:
-        torch.cuda.synchronize(d)
-
-
-def log_compile_time(fn: Callable, name: str = "fn") -> Callable:
-    """Wrap fn: print the first call's time (its kernels' build
-    included) apart from later calls'."""
-    state = {"calls": 0}
-
-    def wrapper(*args, **kwargs):
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        _synchronize(out)
-        dt = time.perf_counter() - t0
-        state["calls"] += 1
-        tag = "compile+run" if state["calls"] == 1 else "run"
-        print(f"[{name}] {tag}: {dt * 1e3:.2f} ms")
-        return out
-
-    return wrapper

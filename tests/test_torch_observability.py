@@ -1,28 +1,14 @@
 """ekaid_torch's `utils/observability.py` and `utils/logging.py`: the
-cases of tests/test_observability.py, and `profile` writing a trace on
-the CPU."""
+metrics log, `profile` writing a trace on the CPU, and the NaN
+sanitizer (the spans: tests/test_torch_spans.py)."""
 
 import json
-import time
 
 import pytest
 import torch
 
 from ekaid_torch.utils.logging import MetricsLogger, read_metrics
-from ekaid_torch.utils.observability import (StepTimer,
-                                             enable_nan_debugging,
-                                             log_compile_time, profile)
-
-
-def test_step_timer_ema_and_throughput():
-    t = StepTimer(alpha=0.5)
-    for _ in range(3):
-        with t:
-            time.sleep(0.01)
-    assert 0.005 < t.ema < 0.1
-    assert 0.005 < t.last < 0.1
-    assert t.throughput(64) > 100
-    assert StepTimer().throughput(1) != StepTimer().throughput(1)   # nan
+from ekaid_torch.utils.observability import enable_nan_debugging, profile
 
 
 def test_metrics_logger_roundtrip(tmp_path):
@@ -38,21 +24,6 @@ def test_metrics_logger_roundtrip(tmp_path):
     with open(tmp_path / "metrics.jsonl") as f:
         for line in f:
             json.loads(line)
-
-
-@pytest.mark.parametrize("out", ["tensor", "tuple", "dict"])
-def test_log_compile_time_wrapper(capsys, out):
-    def f(x):
-        y = x * 2
-        return {"tensor": y, "tuple": (y, 1), "dict": {"y": y}}[out]
-
-    wrapped = log_compile_time(f, name="double")
-    wrapped(torch.ones(4))
-    res = wrapped(torch.ones(4))
-    text = capsys.readouterr().out
-    assert "[double] compile+run" in text and "[double] run" in text
-    assert text.count("compile+run") == 1
-    assert res is not None
 
 
 def test_profile_writes_a_trace(tmp_path):
