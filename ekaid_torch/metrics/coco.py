@@ -9,8 +9,9 @@ from __future__ import annotations
 import json
 from typing import Dict, List, Optional
 
-from ekaid_torch.metrics.caption import (bleu, cider, meteor15,
-                                       ptb_tokenize, rouge_l)
+from ekaid_torch.metrics.caption import (WordTable, bleu, cider, meteor15,
+                                         pack, rouge_l)
+from ekaid_torch.utils.observability import span
 
 
 class CocoCaptions:
@@ -66,21 +67,35 @@ class CaptionEvaluator:
             self.synonyms = derive_vocab_synonyms(vocab)
 
     def evaluate(self, verbose: bool = False) -> Dict[str, float]:
+        """The seven scores, each metric in a span of its own; the
+        captions are tokenized once into token ids (and, for METEOR,
+        their words), packed once for BLEU, ROUGE-L and CIDEr."""
         img_ids = [str(i) for i in self.params["image_id"]]
-        gts = {i: [ptb_tokenize(a["caption"])
-                   for a in self.coco.img_to_anns[i]] for i in img_ids}
-        res = {i: ptb_tokenize(self.coco_res.img_to_anns[i][0]["caption"])
-               for i in img_ids}
+        with span("ekaid.score.tokenize"):
+            table = WordTable()
+            gts = {i: [table(a["caption"])
+                       for a in self.coco.img_to_anns[i]] for i in img_ids}
+            res = {i: table(self.coco_res.img_to_anns[i][0]["caption"])
+                   for i in img_ids}
+            packed = pack(gts, res)
+            word = table.words.__getitem__
+            gts_words = {i: [list(map(word, r)) for r in refs]
+                         for i, refs in gts.items()}
+            res_words = {i: list(map(word, c)) for i, c in res.items()}
 
-        bleu_scores, bleu_img = bleu(gts, res)
+        with span("ekaid.score.bleu"):
+            bleu_scores, bleu_img = bleu(gts, res, packed=packed)
         for k in range(4):
             self._set(f"Bleu_{k + 1}", bleu_scores[k],
                       {i: s[k] for i, s in bleu_img.items()})
-        m, m_img = meteor15(gts, res, synonyms=self.synonyms)
+        with span("ekaid.score.meteor"):
+            m, m_img = meteor15(gts_words, res_words, synonyms=self.synonyms)
         self._set("METEOR", m, m_img)
-        r, r_img = rouge_l(gts, res)
+        with span("ekaid.score.rouge"):
+            r, r_img = rouge_l(gts, res, packed=packed)
         self._set("ROUGE_L", r, r_img)
-        c, c_img = cider(gts, res)
+        with span("ekaid.score.cider"):
+            c, c_img = cider(gts, res, packed=packed)
         self._set("CIDEr", c, c_img)
         if verbose:
             for k, v in self.eval.items():

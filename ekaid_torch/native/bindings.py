@@ -3,8 +3,8 @@
 
 `graph.cpp` (the spatial adjacency, the disease-to-anatomy matching
 and the exact-match comparison of token rows), `gather.cpp` (the threaded row
-gather of `data/pipeline.py::_RawRows`) and `caption.cpp` (ROUGE-L's LCS
-and BLEU's clipped counts, each over a whole eval in one call) are
+gather of `data/pipeline.py::_RawRows`) and `caption.cpp` (ROUGE-L's LCS,
+BLEU's clipped counts and CIDEr-D, each over a whole eval in one call) are
 compiled together by g++ (`CXX` overrides it) into one shared
 library under `build/ekaid_torch/native/` at the repository root, on
 first use. The library is named by a hash of the three sources, the
@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import hashlib
+import itertools
 import os
 import platform
 import subprocess
@@ -32,7 +33,7 @@ import sys
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -120,15 +121,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     signatures = {
         "spatial_adjacency_batch": ([f32p, i64, i64, i64, ctypes.c_float,
                                      ctypes.c_float, i32p], None),
         "match_disease": ([f32p, u8p, i64, f32p, i64, i32p], None),
         "exact_match": ([i32p, i32p, i64, i64, u8p], None),
-        "lcs_len_batch": ([i32p, i64p, i64, i64p], None),
+        "lcs_len_batch": ([i32p, i64p, i64p, i64, i64p], None),
         "bleu_counts_batch": ([i32p, i64p, i64p, i64, i64, i64p, i64p],
                               None),
+        "cider_batch": ([i32p, i64p, i64p, i64, i64, i64, ctypes.c_double,
+                         f64p], None),
         "gather_rows": ([ctypes.c_void_p, i64p, i64, i64, ctypes.c_void_p,
                          i64], None),
         "gather_rows_i64_i32": ([ctypes.c_void_p, i64p, i64, i64, i32p,
@@ -246,38 +250,77 @@ def gather_rows_i64_i32(base_addr: int, starts: np.ndarray, rowelems: int,
 
 # ------------------------------------------------------- caption metrics ---
 
-def _pack(groups):
-    """Groups of token lists -> (int32 ids, int64 offsets over the
-    lists): list k is ids[off[k]:off[k + 1]], and the ids number each
-    group's distinct tokens in order of first sight."""
-    flat, lens = [], [0]
-    for group in groups:
-        ids = {}
-        for toks in group:
-            flat.extend([ids.setdefault(w, len(ids)) for w in toks])
-            lens.append(len(toks))
-    return np.array(flat, np.int32), np.cumsum(lens, dtype=np.int64)
+class Segments(NamedTuple):
+    """Token-id lists packed for the caption entry points: list k is
+    ids[off[k]:off[k + 1]], and segment s is lists seg[s] (its
+    candidate) to seg[s + 1] - 1 (its references)."""
+    ids: np.ndarray     # int32
+    off: np.ndarray     # int64 [lists + 1]
+    seg: np.ndarray     # int64 [segments + 1]
+
+    def refs(self, n_seg: int) -> int:
+        """The references of the first n_seg segments."""
+        return int(self.seg[n_seg]) - n_seg
 
 
-def lcs_len_batch(pairs) -> np.ndarray:
-    """LCS lengths [n] int64 of the (a, b) token-list pairs (ROUGE-L's
-    DP), in one call."""
-    ids, off = _pack(pairs)
-    out = np.zeros(len(pairs), np.int64)
-    load().lcs_len_batch(ids, off, len(pairs), out)
+MAX_N = 4   # an n-gram's key holds 4 ids
+
+
+def pack_segments(segments) -> Segments:
+    """Segments [candidate, *references] of token-id lists -> Segments.
+    The ids are ints >= 0 that name one token alike in every list (one
+    numbering for the corpus), under 2**31."""
+    lists = [toks for s in segments for toks in s]
+    off = np.zeros(len(lists) + 1, np.int64)
+    np.cumsum(np.fromiter(map(len, lists), np.int64, len(lists)),
+              out=off[1:])
+    ids = np.fromiter(itertools.chain.from_iterable(lists), np.int32,
+                      int(off[-1]))
+    if ids.size and ids.min() < 0:
+        raise ValueError(f"token id {ids.min()}: want ids >= 0")
+    seg = np.zeros(len(segments) + 1, np.int64)
+    np.cumsum(np.fromiter(map(len, segments), np.int64, len(segments)),
+              out=seg[1:])
+    return Segments(ids, off, seg)
+
+
+def _check_segments(p: Segments, n_seg: int, max_n: int = MAX_N):
+    if not 0 <= n_seg < len(p.seg) or not 1 <= max_n <= MAX_N:
+        raise ValueError(f"{n_seg} of {len(p.seg) - 1} segments, orders "
+                         f"1..{max_n}: want n_seg within, max_n 1..{MAX_N}")
+
+
+def lcs_len_batch(p: Segments, n_seg: int) -> np.ndarray:
+    """ROUGE-L's LCS lengths [p.refs(n_seg)] int64 of each of the first
+    n_seg segments' candidate with each of its references, in order, in
+    one call."""
+    _check_segments(p, n_seg)
+    out = np.zeros(p.refs(n_seg), np.int64)
+    load().lcs_len_batch(p.ids, p.off, p.seg, n_seg, out)
     return out
 
 
-def bleu_counts_batch(segments, max_n: int = 4):
-    """Clipped n-gram (matches, totals) [n, max_n] int64 of each segment
-    [candidate, *references] (token lists), in one call."""
-    ids, off = _pack(segments)
-    seg = np.cumsum([0] + [len(s) for s in segments], dtype=np.int64)
-    matches = np.zeros((len(segments), max_n), np.int64)
-    totals = np.zeros((len(segments), max_n), np.int64)
-    load().bleu_counts_batch(ids, off, seg, len(segments), max_n, matches,
+def bleu_counts_batch(p: Segments, n_seg: int, max_n: int = 4):
+    """Clipped n-gram (matches, totals) [n_seg, max_n] int64 of the
+    first n_seg segments, in one call."""
+    _check_segments(p, n_seg, max_n)
+    matches = np.zeros((n_seg, max_n), np.int64)
+    totals = np.zeros((n_seg, max_n), np.int64)
+    load().bleu_counts_batch(p.ids, p.off, p.seg, n_seg, max_n, matches,
                              totals)
     return matches, totals
+
+
+def cider_batch(p: Segments, n_seg: int, max_n: int = 4,
+                sigma: float = 6.0) -> np.ndarray:
+    """CIDEr-D [n_seg] float64 of the first n_seg segments' candidates,
+    in one call: the idf counts the references of every segment in p,
+    each segment an image."""
+    _check_segments(p, n_seg, max_n)
+    out = np.zeros(n_seg, np.float64)
+    load().cider_batch(p.ids, p.off, p.seg, len(p.seg) - 1, n_seg, max_n,
+                       sigma, out)
+    return out
 
 
 if __name__ == "__main__":

@@ -1,35 +1,40 @@
 // Native host-side caption-metric kernels: the port's own copy of the
-// ROUGE-L and BLEU parts of ekaid_tpu/native/caption.cpp, for the inner
-// loops of ekaid_torch/metrics/caption.py (~70K test answers x up to 91
-// tokens):
+// ROUGE-L and BLEU parts of ekaid_tpu/native/caption.cpp, and CIDEr-D,
+// for the inner loops of ekaid_torch/metrics/caption.py (~70K test
+// answers x up to 91 tokens):
 //
 //   * lcs_len        - ROUGE-L's O(T^2) dynamic program.
 //   * bleu_counts    - clipped n-gram match/total counts per segment
-//                      (n-grams packed into 64-bit keys, vocab < 2^16;
-//                      counting via sorted vectors, no hashing).
+//                      (counting via sorted vectors, no hashing).
+//   * cider          - CIDEr-D: document frequency over the references,
+//                      each side's tf-idf vector of every order, the
+//                      clipped dot product and the Gaussian length
+//                      penalty.
 //
-// Tokens arrive as int32 ids (Python owns the string->id mapping, ids
-// local to a segment), a whole eval in one call of each *_batch entry
-// point; unit tests hold them to the Python implementations. METEOR's
-// alignment stays in Python: the search is cheap beside the per-word
-// stem and synonym lookups that feed it, so a native copy was no
-// faster.
+// Tokens arrive as int32 ids >= 0, numbered once for the whole corpus
+// (Python owns the string->id mapping), a whole eval in one call of each
+// *_batch entry point; an n-gram is keyed by its ids + 1 in 32 bits
+// apiece, so n <= 4 and keys of different orders differ. Unit tests
+// hold them to the Python implementations. METEOR's alignment stays in
+// Python: the search is cheap beside the per-word stem and synonym
+// lookups that feed it, so a native copy was no faster.
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <vector>
 
 namespace {
 
+using Key = unsigned __int128;
+
 // Collect sorted packed n-grams of order n from ids[0..len).
-void ngrams(const int32_t* ids, int64_t len, int n,
-            std::vector<uint64_t>* out) {
+void ngrams(const int32_t* ids, int64_t len, int n, std::vector<Key>* out) {
   out->clear();
-  if (len < n) return;
   for (int64_t i = 0; i + n <= len; ++i) {
-    uint64_t key = 0;
+    Key key = 0;
     for (int j = 0; j < n; ++j)
-      key = (key << 16) | static_cast<uint64_t>(ids[i + j] & 0xffff);
+      key = (key << 32) | (static_cast<uint32_t>(ids[i + j]) + 1u);
     out->push_back(key);
   }
   std::sort(out->begin(), out->end());
@@ -58,15 +63,12 @@ void bleu_counts(const int32_t* cand, int64_t nc,
                  const int32_t* refs_flat, const int64_t* ref_lens,
                  int64_t nrefs, int64_t max_n, int64_t* out_matches,
                  int64_t* out_totals) {
-  std::vector<uint64_t> cg, rg, best;
+  std::vector<Key> cg, rg;
   for (int n = 1; n <= max_n; ++n) {
     ngrams(cand, nc, n, &cg);
     out_totals[n - 1] = static_cast<int64_t>(cg.size());
-    // max reference count per n-gram ("clip" numerator)
-    best.clear();  // parallel to runs of cg
-    std::vector<int64_t> best_cnt;
     // gather distinct candidate n-grams + their counts
-    std::vector<uint64_t> dv;
+    std::vector<Key> dv;
     std::vector<int64_t> dc;
     for (size_t i = 0; i < cg.size();) {
       size_t j = i;
@@ -75,6 +77,7 @@ void bleu_counts(const int32_t* cand, int64_t nc,
       dc.push_back(static_cast<int64_t>(j - i));
       i = j;
     }
+    // max reference count per n-gram ("clip" numerator)
     std::vector<int64_t> maxref(dv.size(), 0);
     const int32_t* rp = refs_flat;
     for (int64_t r = 0; r < nrefs; ++r) {
@@ -98,23 +101,104 @@ void bleu_counts(const int32_t* cand, int64_t nc,
   }
 }
 
+// One order's tf-idf vector: distinct n-grams by key, their weights
+// (count x idf) and the vector's norm.
+struct TfIdf {
+  std::vector<Key> keys;
+  std::vector<double> vals;
+  double norm = 0.0;
+};
+
+// Document frequency: in how many images' references each n-gram
+// occurs, as sorted keys and their counts.
+class DocFreq {
+ public:
+  void add(std::vector<Key>* image_grams) {
+    std::sort(image_grams->begin(), image_grams->end());
+    image_grams->erase(
+        std::unique(image_grams->begin(), image_grams->end()),
+        image_grams->end());
+    all_.insert(all_.end(), image_grams->begin(), image_grams->end());
+  }
+
+  void finish(int64_t n_docs) {
+    std::sort(all_.begin(), all_.end());
+    for (size_t i = 0; i < all_.size();) {
+      size_t j = i;
+      while (j < all_.size() && all_[j] == all_[i]) ++j;
+      keys_.push_back(all_[i]);
+      counts_.push_back(static_cast<double>(j - i));
+      i = j;
+    }
+    all_ = std::vector<Key>();
+    log_docs_ = std::log(static_cast<double>(std::max<int64_t>(n_docs, 1)));
+  }
+
+  double idf(Key key) const {
+    auto it = std::lower_bound(keys_.begin(), keys_.end(), key);
+    double df = it != keys_.end() && *it == key ? counts_[it - keys_.begin()]
+                                                : 0.0;
+    return log_docs_ - std::log(std::max(1.0, df));
+  }
+
+ private:
+  std::vector<Key> all_, keys_;
+  std::vector<double> counts_;
+  double log_docs_ = 0.0;
+};
+
+void tf_idf(const int32_t* ids, int64_t len, int n, const DocFreq& df,
+            std::vector<Key>* grams, TfIdf* out) {
+  ngrams(ids, len, n, grams);
+  out->keys.clear();
+  out->vals.clear();
+  double sq = 0.0;
+  for (size_t i = 0; i < grams->size();) {
+    size_t j = i;
+    while (j < grams->size() && (*grams)[j] == (*grams)[i]) ++j;
+    const double v = static_cast<double>(j - i) * df.idf((*grams)[i]);
+    out->keys.push_back((*grams)[i]);
+    out->vals.push_back(v);
+    sq += v * v;
+    i = j;
+  }
+  out->norm = std::sqrt(sq);
+}
+
+// CIDEr-D's clipped product: sum over the reference's n-grams of
+// min(hyp, ref) x ref, the hypothesis' weight 0 where it lacks one.
+double clipped_dot(const TfIdf& hyp, const TfIdf& ref) {
+  double val = 0.0;
+  size_t h = 0;
+  for (size_t i = 0; i < ref.keys.size(); ++i) {
+    while (h < hyp.keys.size() && hyp.keys[h] < ref.keys[i]) ++h;
+    const double hv = h < hyp.keys.size() && hyp.keys[h] == ref.keys[i]
+                          ? hyp.vals[h] : 0.0;
+    val += std::min(hv, ref.vals[i]) * ref.vals[i];
+  }
+  return val;
+}
+
 }  // namespace
 
 // The entry points take a whole eval in one call. Token lists arrive
-// flattened: list k is ids[off[k] .. off[k + 1]).
+// flattened: list k is ids[off[k] .. off[k + 1]). Segment s is lists
+// seg[s] .. seg[s + 1] - 1: its candidate, then its references.
 extern "C" {
 
-// pair p: the LCS length of lists 2p and 2p + 1.
-void lcs_len_batch(const int32_t* ids, const int64_t* off, int64_t n_pairs,
-                   int64_t* out) {
-  for (int64_t p = 0; p < n_pairs; ++p) {
-    const int64_t* o = off + 2 * p;
-    out[p] = lcs_len(ids + o[0], o[1] - o[0], ids + o[1], o[2] - o[1]);
+// segment s < n_seg: the LCS length of its candidate with each of its
+// references, reference list k at out[k - s - 1].
+void lcs_len_batch(const int32_t* ids, const int64_t* off,
+                   const int64_t* seg, int64_t n_seg, int64_t* out) {
+  for (int64_t s = 0; s < n_seg; ++s) {
+    const int64_t c = seg[s];
+    for (int64_t k = c + 1; k < seg[s + 1]; ++k)
+      out[k - s - 1] = lcs_len(ids + off[k], off[k + 1] - off[k],
+                               ids + off[c], off[c + 1] - off[c]);
   }
 }
 
-// segment s: the candidate is list seg[s], its references the lists
-// seg[s] + 1 .. seg[s + 1] - 1. out_matches/out_totals: [n_seg, max_n].
+// segment s < n_seg: out_matches/out_totals [n_seg, max_n].
 void bleu_counts_batch(const int32_t* ids, const int64_t* off,
                        const int64_t* seg, int64_t n_seg, int64_t max_n,
                        int64_t* out_matches, int64_t* out_totals) {
@@ -127,6 +211,53 @@ void bleu_counts_batch(const int32_t* ids, const int64_t* off,
     bleu_counts(ids + off[c], off[c + 1] - off[c], ids + off[c + 1],
                 ref_lens.data(), static_cast<int64_t>(ref_lens.size()),
                 max_n, out_matches + s * max_n, out_totals + s * max_n);
+  }
+}
+
+// CIDEr-D of the candidates of segments 0 .. n_scored - 1 into
+// out[n_scored]: the references of all n_seg segments are the corpus
+// whose document frequency and size (n_seg images) give the idf.
+// Orders 1 .. max_n, Gaussian length penalty of width sigma, x10.
+void cider_batch(const int32_t* ids, const int64_t* off, const int64_t* seg,
+                 int64_t n_seg, int64_t n_scored, int64_t max_n,
+                 double sigma, double* out) {
+  DocFreq df;
+  std::vector<Key> grams, image_grams;
+  for (int64_t s = 0; s < n_seg; ++s) {
+    image_grams.clear();
+    for (int64_t k = seg[s] + 1; k < seg[s + 1]; ++k)
+      for (int n = 1; n <= max_n; ++n) {
+        ngrams(ids + off[k], off[k + 1] - off[k], n, &grams);
+        image_grams.insert(image_grams.end(), grams.begin(), grams.end());
+      }
+    df.add(&image_grams);
+  }
+  df.finish(n_seg);
+
+  std::vector<TfIdf> hyp(max_n);
+  TfIdf ref;
+  for (int64_t s = 0; s < n_scored; ++s) {
+    const int64_t c = seg[s], hl = off[c + 1] - off[c];
+    for (int n = 0; n < max_n; ++n)
+      tf_idf(ids + off[c], hl, n + 1, df, &grams, &hyp[n]);
+    double total = 0.0;
+    for (int64_t k = c + 1; k < seg[s + 1]; ++k) {
+      const int64_t rl = off[k + 1] - off[k];
+      const double delta = static_cast<double>(hl - rl);
+      const double penalty =
+          std::exp(-(delta * delta) / (2 * (sigma * sigma)));
+      double sim = 0.0;
+      for (int n = 0; n < max_n; ++n) {
+        tf_idf(ids + off[k], rl, n + 1, df, &grams, &ref);
+        double val = clipped_dot(hyp[n], ref);
+        if (hyp[n].norm != 0.0 && ref.norm != 0.0)
+          val /= hyp[n].norm * ref.norm;
+        sim += val * penalty;
+      }
+      total += sim / static_cast<double>(max_n);
+    }
+    const int64_t n_refs = seg[s + 1] - c - 1;
+    out[s] = 10.0 * total / static_cast<double>(std::max<int64_t>(n_refs, 1));
   }
 }
 

@@ -251,37 +251,63 @@ def _corpus(rng, n=30):
 
 def _scores(gts, res):
     return {"bleu": cap.bleu(gts, res), "rouge": cap.rouge_l(gts, res),
-            "meteor": cap.meteor15(gts, res)}
+            "meteor": cap.meteor15(gts, res), "cider": cap.cider(gts, res)}
+
+
+def _assert_cider_close(got, want):
+    """CIDEr's mean and every per-image value within 1e-12 relative:
+    only the order of its float sums differs."""
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-12, atol=0)
+    assert list(got[1]) == list(want[1])
+    np.testing.assert_allclose(list(got[1].values()),
+                               list(want[1].values()), rtol=1e-12, atol=0)
 
 
 def test_caption_kernels_match_python(rng):
-    """One batch call over 50 segments against the Python versions and
-    the reference's per-segment kernels."""
-    segs = [[list(rng.integers(0, 6, rng.integers(0, 20)))
+    """One batch call over 50 packed segments against the Python
+    versions and the reference's per-segment kernels; the same counts
+    when the ids are renamed to ids past 16 bits, as a corpus-wide
+    numbering gives; negative ids refused."""
+    segs = [[[int(w) for w in rng.integers(0, 6, rng.integers(0, 20))]
              for _ in range(rng.integers(1, 4))] for _ in range(50)]
-    pairs = [(s[0], s[-1]) for s in segs]
-    lcs = nat.lcs_len_batch(pairs)
-    m, t = nat.bleu_counts_batch(segs, 4)
+    p = nat.pack_segments(segs)
+    lcs = nat.lcs_len_batch(p, len(segs))
+    m, t = nat.bleu_counts_batch(p, len(segs), 4)
+    lcs_of = iter(lcs.tolist())
     for k, s in enumerate(segs):
-        a, b = (np.asarray(x, np.int32) for x in pairs[k])
-        want = cap._lcs_len(*pairs[k])
-        assert lcs[k] == want == jnat.lcs_len(a, b)
-        jm, jt = jnat.bleu_counts(np.asarray(s[0], np.int32),
+        cand = np.asarray(s[0], np.int32)
+        for ref in s[1:]:
+            assert next(lcs_of) == cap._lcs_len(ref, s[0]) == \
+                jnat.lcs_len(np.asarray(ref, np.int32), cand)
+        jm, jt = jnat.bleu_counts(cand,
                                   [np.asarray(r, np.int32) for r in s[1:]],
                                   4)
         np.testing.assert_array_equal(m[k], jm)
         np.testing.assert_array_equal(t[k], jt)
         assert t[k].tolist() == [max(0, len(s[0]) - n) for n in range(4)]
+    assert next(lcs_of, None) is None and len(lcs) == p.refs(len(segs))
+    wide = [0, 1, 65535, 65536, 65537, 2 ** 31 - 1]
+    w = nat.pack_segments([[[wide[i] for i in toks] for toks in s]
+                           for s in segs])
+    np.testing.assert_array_equal(nat.lcs_len_batch(w, len(segs)), lcs)
+    for got, want in zip(nat.bleu_counts_batch(w, len(segs), 4), (m, t)):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(nat.cider_batch(w, len(segs)),
+                                  nat.cider_batch(p, len(segs)))
+    with pytest.raises(ValueError, match="ids >= 0"):
+        nat.pack_segments([[[0, -1]]])
+    with pytest.raises(ValueError, match="max_n"):
+        nat.bleu_counts_batch(p, len(segs), 5)
 
 
 def test_caption_metrics_native_equal_python(rng, plain):
     gts, res = _corpus(rng)
     native = _scores(gts, res)
     ref = {"bleu": jcap.bleu(gts, res), "rouge": jcap.rouge_l(gts, res),
-           "meteor": jcap.meteor15(gts, res)}
+           "meteor": jcap.meteor15(gts, res), "cider": jcap.cider(gts, res)}
     plain()
     python = _scores(gts, res)
-    for k in ("bleu", "rouge", "meteor"):
+    for k in ("bleu", "rouge", "meteor", "cider"):
         np.testing.assert_allclose(native[k][0], python[k][0], rtol=1e-12,
                                    atol=0, err_msg=k)
         np.testing.assert_allclose(native[k][0], ref[k][0], rtol=1e-12,
@@ -289,14 +315,17 @@ def test_caption_metrics_native_equal_python(rng, plain):
     assert native["rouge"] == python["rouge"]
     assert native["meteor"] == python["meteor"]
     assert native["bleu"][1] == python["bleu"][1]
+    _assert_cider_close(native["cider"], python["cider"])
+    _assert_cider_close(native["cider"], ref["cider"])
 
 
 @pytest.mark.parametrize("shape", ["empty candidates", "many references",
                                    "long answers", "one word"])
 def test_caption_batches_equal_python(rng, plain, shape):
-    """BLEU and ROUGE-L through one native call each, at the shapes that
-    move the batch's offsets: empty candidates, up to 5 references a
-    segment, answers up to the decode's 90 tokens, one-word answers."""
+    """BLEU, ROUGE-L and CIDEr through one native call each, at the
+    shapes that move the batch's offsets: empty candidates, up to 5
+    references a segment, answers up to the decode's 90 tokens, one-word
+    answers."""
     lo, hi, refs = {"empty candidates": (0, 4, 1),
                     "many references": (1, 12, 5),
                     "long answers": (40, 91, 2),
@@ -310,7 +339,9 @@ def test_caption_batches_equal_python(rng, plain, shape):
                                                                  + 1))]
            for i in range(40)}
     res = {str(i): sent(lo) for i in range(40)}
-    native = (cap.bleu(gts, res), cap.rouge_l(gts, res))
+    native = (cap.bleu(gts, res), cap.rouge_l(gts, res), cap.cider(gts, res))
     plain()
-    assert native == (cap.bleu(gts, res), cap.rouge_l(gts, res))
+    python = (cap.bleu(gts, res), cap.rouge_l(gts, res), cap.cider(gts, res))
+    assert native[:2] == python[:2]
+    _assert_cider_close(native[2], python[2])
 

@@ -2,7 +2,8 @@
 without a profiler, host events with no device-side copy under one,
 their host time added up by name, and placed at every
 boundary of `Trainer.evaluate` on both input paths without changing
-its answers. CPU only."""
+its answers; inside its scoring, a span for each part and a count of
+each native or plain metric call. CPU only."""
 
 import json
 import threading
@@ -15,6 +16,7 @@ from torch.profiler import ProfilerActivity
 from torch.profiler import profile as torch_profile
 
 from ekaid_torch.config import load_config
+from ekaid_torch.metrics import caption as cap
 from ekaid_torch.train import test as ptest
 from ekaid_torch.train.train import Loader, build_synthetic_trainer
 from ekaid_torch.utils import observability as obs
@@ -23,6 +25,8 @@ ROOT = Path(__file__).resolve().parent.parent
 EVAL = ("ekaid.eval.inputs", "ekaid.eval.decode", "ekaid.eval.fetch",
         "ekaid.eval.detok")
 DECODE = ("ekaid.decode.encode", "ekaid.decode.sample")
+SCORE = ("ekaid.score.tokenize", "ekaid.score.bleu", "ekaid.score.meteor",
+         "ekaid.score.rouge", "ekaid.score.cider")
 
 
 def _profiler(all_threads=False):
@@ -160,16 +164,37 @@ def test_evaluate_spans_every_boundary(trainer, use_cache):
     rec = obs.recorded()
     assert {k: v["count"] for k, v in rec["spans"].items()} == {
         **{k: n for k in EVAL[1:] + DECODE}, "ekaid.eval.inputs": inputs,
-        "ekaid.eval.score": 1}
+        "ekaid.eval.score": 1, **{k: 1 for k in SCORE}}
     # the decode's host time holds its two children's
     d = rec["spans"]["ekaid.eval.decode"]
     kids = sum(rec["spans"][k]["host_s"] for k in DECODE)
     assert d["host_s"] >= kids > 0
+    c = rec["counts"]
     if use_cache:
-        c = rec["counts"]
         assert c["ekaid.cache.hits"] + c["ekaid.cache.misses"] > 0
     else:
-        assert rec["counts"] == {}
+        assert c == {"ekaid.score.native": 3}
+
+
+@pytest.mark.parametrize("path", ["native", "plain"])
+def test_scoring_spans_and_path_counts(trainer, monkeypatch, path):
+    """One scoring call: the five `ekaid.score.*` spans once each inside
+    `ekaid.eval.score`, and BLEU, ROUGE-L and CIDEr counted by the path
+    they took."""
+    if path == "plain":
+        monkeypatch.setattr(cap, "_native", lambda: None)
+    with _profiler() as prof:
+        trainer.evaluate(use_cache=False)
+    ev = _spans(prof)
+    score = [e for e in ev if e[0] == "ekaid.eval.score"]
+    assert len(score) == 1
+    for name in SCORE:
+        inner = [e for e in ev if e[0] == name]
+        assert len(inner) == 1 and _inside(inner[0], score[0]), name
+    rec = obs.recorded()
+    assert rec["counts"] == {f"ekaid.score.{path}": 3}
+    parts = sum(rec["spans"][k]["host_s"] for k in SCORE)
+    assert rec["spans"]["ekaid.eval.score"]["host_s"] >= parts > 0
 
 
 @pytest.mark.parametrize("use_cache", [True, False], ids=["cache", "wire"])
