@@ -11,7 +11,9 @@ its question tokens, its slot ids and the rows it misses.
     int8; see pipeline.compact_wire);
   * a batch's missing rows go up as one stacked host-to-device copy
     (from pinned memory on the card), padded to the next power of two
-    rows, and are installed with one `index_copy_` each;
+    rows, and are installed with one `index_copy_` each; the slot ids
+    go up from pinned memory too, so resolving a batch never waits for
+    the work queued on the device;
   * `gather_batch` builds the decode's [B, ...] inputs on the device by
     slot index: exactly the tensors the compact wire would carry.
 Slots are assigned on the host, least recently used first out (never a
@@ -114,8 +116,9 @@ class DeviceEvalCache:
                     [r, np.zeros((pm - m,) + r.shape[1:], r.dtype)])
                     for r in rows)
             self.upload_bytes += sum(r.nbytes for r in rows)
-            slots = torch.tensor([self._slot_of[i] for i in miss],
-                                 dtype=torch.int64, device=self.device)
+            slots = host_to_device(
+                np.fromiter((self._slot_of[i] for i in miss), np.int64, m),
+                self.device)
             for cache, r in zip(self._dev, rows):
                 cache.index_copy_(0, slots,
                                   host_to_device(r, self.device)[:m])
@@ -124,7 +127,7 @@ class DeviceEvalCache:
         slot_arr = np.fromiter(
             (self._slot_of[int(i)] for i in legs), np.int64, len(legs)
         ).reshape(fi.shape)
-        s = torch.from_numpy(slot_arr).to(self.device)
+        s = host_to_device(slot_arr, self.device)
         return s[:, 0], s[:, 1]
 
     def dev_arrays(self):

@@ -73,7 +73,8 @@ from ekaid_torch.parallel import mesh as dp
 from ekaid_torch.train.score import accuracy
 from ekaid_torch.train.step import Forward, init_state, train_step
 from ekaid_torch.utils.checkpoint import CheckpointManager
-from ekaid_torch.utils.device import host_to_device, resolve_device
+from ekaid_torch.utils.device import (HostCopy, host_to_device,
+                                     resolve_device)
 from ekaid_torch.utils.dtypes import Policy
 from ekaid_torch.utils.logging import MetricsLogger
 from ekaid_torch.utils.observability import span
@@ -352,23 +353,27 @@ class Trainer:
             batches = self._wire_batches(loader)
         predictions: Dict[str, str] = {}
 
-        def flush(pair_index, out):
-            if not self.lead:
+        def flush(pair_index, tokens):
+            if tokens is None:
                 return
             with span("ekaid.eval.fetch"):
-                seqs = out["seq"].cpu().numpy()
+                seqs = tokens.wait()
             with span("ekaid.eval.detok"):
                 for j, row in enumerate(seqs):
                     predictions[str(int(pair_index[j]))] = \
                         self.vocab.decode(row)
 
-        # batch i is read back only once batch i + 1 is queued
+        # batch i's tokens are copied to the host right behind its
+        # decode, and read only once batch i + 1 is queued: the read
+        # waits for batch i alone while batch i + 1 runs on the device.
+        # Ranks but the lead read nothing.
         pending = None
         for i, (idxs, batch) in enumerate(batches):
             if max_batches is not None and i >= max_batches:
                 break
             with span("ekaid.eval.decode"):
-                nxt = (idxs, decode(batch))
+                out = decode(batch)
+                nxt = (idxs, HostCopy(out["seq"]) if self.lead else None)
             if pending is not None:
                 flush(*pending)
             pending = nxt

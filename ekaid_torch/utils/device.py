@@ -26,6 +26,30 @@ def host_to_device(array, device: torch.device) -> torch.Tensor:
     return t
 
 
+class HostCopy:
+    """A tensor's copy to the host, started now and waited for alone.
+    From a CUDA device the copy goes into pinned memory without blocking
+    the host, queued on the device's current stream behind the work that
+    made the tensor, with an event recorded after it: `wait` ends when
+    this tensor is on the host, not when the work queued since has run.
+    Elsewhere the tensor is read at once."""
+
+    def __init__(self, t: torch.Tensor):
+        self._done = None
+        if t.device.type != "cuda":
+            self._host = t.cpu()
+            return
+        self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        self._host.copy_(t, non_blocking=True)
+        self._done = torch.cuda.Event()
+        self._done.record(torch.cuda.current_stream(t.device))
+
+    def wait(self) -> np.ndarray:
+        if self._done is not None:
+            self._done.synchronize()
+        return self._host.numpy()
+
+
 def visible_devices(device: torch.device) -> list:
     """The devices a model on `device` can be copied to: every CUDA
     device for a CUDA model (its own first), the CPU alone for a CPU

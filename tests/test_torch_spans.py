@@ -161,6 +161,11 @@ def test_evaluate_spans_every_boundary(trainer, use_cache):
             if e[0] == name:
                 assert any(_inside(e, d) for d in decodes), name
     assert not any(e[4] for e in ev)
+    # batch i is read once batch i + 1 is queued, the last after its own
+    fetches = [e for e in ev if e[0] == "ekaid.eval.fetch"]
+    for i, f in enumerate(fetches):
+        assert decodes[min(i + 1, n - 1)][2] <= f[1]
+        assert i + 2 >= n or f[2] <= decodes[i + 2][1]
     rec = obs.recorded()
     assert {k: v["count"] for k, v in rec["spans"].items()} == {
         **{k: n for k in EVAL[1:] + DECODE}, "ekaid.eval.inputs": inputs,
