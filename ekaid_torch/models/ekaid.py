@@ -18,6 +18,13 @@ teacher forcing; the losses below turn its outputs into the training
 objective. `encode`, the greedy `decode` and the beam-search
 `decode_beam` run without gradients.
 
+On a CUDA device, an encode without gradients and without dropout
+replays a CUDA graph of the encoder, one per input signature
+(`EncodeGraphs`): the same kernels in the same order, launched by the
+host as one graph in place of ~1,500-2,250 operations. Training, the
+CPU and a mesh whose model axis is over 1 (collectives inside the
+encoder) run it eagerly.
+
 On a mesh (`parallel/mesh.py`), the parameters that its rules shard
 over the model axis hold this rank's block (`parallel/tensor.py`), and
 a greedy decode splits its rows over the data axis (the reference's
@@ -27,7 +34,8 @@ the card, and the blocks are gathered back in row order.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from collections import OrderedDict
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -39,13 +47,109 @@ from ekaid_torch.ops.graph import broadcast_adjacency
 from ekaid_torch.parallel.tensor import gather, shard_parameters
 from ekaid_torch.utils.device import resolve_device
 from ekaid_torch.utils.dtypes import F32, Policy
-from ekaid_torch.utils.observability import span
+from ekaid_torch.utils.observability import count, span
 
 _INPUTS = ("d_feats", "q_feats", "d_adj", "q_adj", "d_sem_adj", "q_sem_adj",
            "d_bb", "q_bb", "question")
 #: the pixels-in mode0 batch: the image pair and the question
 _MODE0_INPUTS = ("d_feats", "q_feats", "question")
 _TRAIN = ("labels", "masks")
+#: input signatures whose encode `EncodeGraphs` keeps (least recently
+#: used out): the eval loop uses one, the server its bucket and batch 1
+GRAPH_SIGNATURES = 4
+#: the device types on which an eval encode is captured and replayed
+GRAPH_DEVICES = ("cuda",)
+
+
+def _state_key(module: nn.Module, params: list, host: list) -> None:
+    """Appends to `params` the (identity, storage address, dtype) of
+    every parameter and buffer of `module`, and to `host` every module's
+    `cfg` (the host-side settings that choose the operations an encode
+    runs, such as `pair_batch`), walked over the modules' own tables (a
+    few times faster than `parameters()`, which the encode would pay per
+    batch)."""
+    for t in (*module._parameters.values(), *module._buffers.values()):
+        if t is not None:
+            params.append((id(t), t.data_ptr(), t.dtype))
+    cfg = module.__dict__.get("cfg")
+    if cfg is not None:
+        host.append(cfg)
+    for child in module._modules.values():
+        _state_key(child, params, host)
+
+
+class _Graph:
+    """One captured encode: the input buffers it reads, the graph, and
+    the output buffers its replay writes."""
+
+    def __init__(self, encode, b: Dict[str, torch.Tensor]):
+        self.device = next(iter(b.values())).device
+        self.inputs = {k: v.clone() for k, v in b.items()}
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device):
+            # other threads (a loader, a server's) may use the device
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self.outputs = encode(self.inputs)
+
+    def replay(self, b: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        with torch.cuda.device(self.device):
+            for k, v in b.items():
+                self.inputs[k].copy_(v)
+            self.graph.replay()
+            # fresh tensors: the next replay overwrites the buffers
+            return {k: v.clone() for k, v in self.outputs.items()}
+
+
+class EncodeGraphs:
+    """An encode replayed as a CUDA graph per signature: the settings of
+    the modules it runs (each one's `cfg`, by value) and each input's
+    name, shape, dtype and device. The last `GRAPH_SIGNATURES`
+    signatures are kept, least recently used out.
+
+    A signature runs eagerly at its first sight, the run that settles
+    the libraries' choices of algorithm and workspace; it is captured at
+    its second and replayed from then on: its inputs copied into the
+    graph's buffers, its outputs cloned out of them, so that no two
+    calls return the same storage. A `cfg` swapped for another (a
+    `pair_batch` turned on) is another signature, so a graph never
+    replays operations the settings no longer choose. A graph reads the
+    parameters at the addresses they had when it was captured, so every
+    graph is dropped when a parameter's identity, storage or dtype
+    changes (`cast_params_for_inference`, a load that replaces `p.data`,
+    a move to another device); an update in place (an optimizer's step)
+    keeps them, and the next replay reads the new values. A copy starts
+    with no graph."""
+
+    def __init__(self):
+        #: signature -> None (seen once) or its `_Graph`, oldest first
+        self._known: "OrderedDict[tuple, Optional[_Graph]]" = OrderedDict()
+        self._params: Optional[list] = None
+
+    def __deepcopy__(self, memo):
+        return EncodeGraphs()
+
+    def __call__(self, encode, b: Dict[str, torch.Tensor],
+                 module: nn.Module) -> Tuple[Dict[str, torch.Tensor], bool]:
+        """(encode(b)'s outputs, whether they came from a replay);
+        `module` holds the parameters and settings the encode reads."""
+        params, host = [], []
+        _state_key(module, params, host)
+        if params != self._params:
+            self._known.clear()
+            self._params = params
+        sig = (tuple(host),
+               tuple((k, v.shape, v.dtype, v.device) for k, v in b.items()))
+        if sig not in self._known:
+            self._known[sig] = None
+            while len(self._known) > GRAPH_SIGNATURES:
+                self._known.popitem(last=False)
+            return encode(b), False
+        self._known.move_to_end(sig)
+        graph = self._known[sig]
+        if graph is None:
+            graph = self._known[sig] = _Graph(encode, b)
+        return graph.replay(b), True
 
 
 class EkaidModel(nn.Module):
@@ -71,6 +175,7 @@ class EkaidModel(nn.Module):
         self.mesh = mesh
         if mesh is not None:
             shard_parameters(self, mesh)
+        self.graphs = EncodeGraphs()
         self.to(dev)
         self.eval()
 
@@ -96,7 +201,30 @@ class EkaidModel(nn.Module):
                 broadcast_adjacency(b["d_sem_adj"], c.sem_label_num, n, dt),
                 broadcast_adjacency(b["q_sem_adj"], c.sem_label_num, n, dt))
 
+    def graphs_apply(self, gen=None) -> bool:
+        """Whether an encode without gradients replays a CUDA graph: on
+        a CUDA device, without dropout (`gen` None), and with no model
+        axis over 1."""
+        mesh = self.mesh
+        return (self.device.type in GRAPH_DEVICES and gen is None
+                and (mesh is None or mesh.model == 1))
+
     def _encode(self, b, gen=None) -> Dict[str, torch.Tensor]:
+        """The encoder over the batch's tensors `b`, replayed from
+        `graphs` where `graphs_apply`. Each encode without gradients
+        adds 1 to `ekaid.encode.graph` or to `ekaid.encode.eager`, and 0
+        to the other."""
+        if torch.is_grad_enabled():
+            return self._encoder(b, gen)
+        if self.graphs_apply(gen):
+            enc, graphed = self.graphs(self._encoder, b, self.change_detector)
+        else:
+            enc, graphed = self._encoder(b, gen), False
+        count("ekaid.encode.graph", int(graphed))
+        count("ekaid.encode.eager", int(not graphed))
+        return enc
+
+    def _encoder(self, b, gen=None) -> Dict[str, torch.Tensor]:
         if self.cfg.train.setting == "mode0":
             return self.change_detector(
                 b["d_feats"], b["q_feats"], None, None, None, None, None,

@@ -175,6 +175,9 @@ def test_evaluate_spans_every_boundary(trainer, use_cache):
     kids = sum(rec["spans"][k]["host_s"] for k in DECODE)
     assert d["host_s"] >= kids > 0
     c = rec["counts"]
+    # every decode's encode, eager on the CPU
+    assert (c.pop("ekaid.encode.graph"), c.pop("ekaid.encode.eager")) == (
+        0, n)
     if use_cache:
         assert c["ekaid.cache.hits"] + c["ekaid.cache.misses"] > 0
     else:
@@ -197,7 +200,9 @@ def test_scoring_spans_and_path_counts(trainer, monkeypatch, path):
         inner = [e for e in ev if e[0] == name]
         assert len(inner) == 1 and _inside(inner[0], score[0]), name
     rec = obs.recorded()
-    assert rec["counts"] == {f"ekaid.score.{path}": 3}
+    assert rec["counts"] == {f"ekaid.score.{path}": 3,
+                             "ekaid.encode.graph": 0,
+                             "ekaid.encode.eager": _batches(trainer)}
     parts = sum(rec["spans"][k]["host_s"] for k in SCORE)
     assert rec["spans"]["ekaid.eval.score"]["host_s"] >= parts > 0
 
