@@ -249,33 +249,35 @@ Phases, each fatal on failure:
      `exact_match` equal to the plain comparison on phase 11a's
      answers. K1's and K2's launches here add to their `kernels`
      entries.
- 16. the data x model mesh: TP_DATA x TP_MODEL fresh interpreters, all
-     on cuda:0, joined in a gloo group through a `file://` rendezvous
-     (NCCL takes one rank a device), K1 loaded from phase 2's library
-     (no nvcc). (a) At flagship widths, f32 with TF32 off, one train
-     step with dropout off at TRAIN_B, each data rank on its rows
-     d::data: every rank holds the rule table's shapes, the ranks'
-     updated parameters are equal, and against the one-process step on
-     the card the loss is within TRAIN_LOSS_RTOL, each gathered
-     gradient tensor within TRAIN_GRAD_TOL of its largest magnitude
-     (10a's floor) and the Adam-updated parameters within
-     TP_PARAM_RTOL / TP_PARAM_ATOL where the gradient stands
+ 16. the data axis: MESH_DATA fresh interpreters, all on cuda:0, joined
+     in a gloo group through a `file://` rendezvous (NCCL takes one rank
+     a device), K1 loaded from phase 2's library (no nvcc). (a) At
+     flagship widths, f32 with TF32 off, one train step in DDP with
+     dropout off at TRAIN_B, each rank on its rows r::data (the loss's
+     denominators all-reduced, the gradients averaged over the group):
+     the ranks' updated parameters are equal, and against the
+     one-process step on the card that takes the ranks' rows as its
+     MESH_DATA microbatches (accum_steps: microbatch i is rows
+     i::data, so each product runs at a rank's shape; the whole batch
+     in one product stands ~1e-3 of a tensor's max off in the implicit
+     relation, whose log(relu) magnifies the f32 rounding of a product
+     at another shape) the loss is within TRAIN_LOSS_RTOL,
+     each gradient tensor within TRAIN_GRAD_TOL of its largest
+     magnitude (10a's floor) and the Adam-updated parameters within
+     MESH_PARAM_RTOL / MESH_PARAM_ATOL where the gradient stands
      UPDATE_SIGNAL x above the tensor's gap (on at least
      UPDATE_MIN_SHARE of the elements; Adam's first step moves an
      element at noise size by about +-lr either way), every element
-     within 2 lr; (b) one eval batch of TP_EVAL_B
-     through `EkaidModel.decode` on the mesh, at f32 and at bf16: each
-     data rank decodes its contiguous half through K1 (once on every
-     rank) from weights gathered whole, and the blocks are gathered;
-     f32: tokens equal to the one-process plain decode up to a
-     near-tie, the equal prefix's logprobs within TP_LP_GATE of the
-     one-process K1 decode; bf16: step-0 tokens equal up to a near-tie
-     under BF16_STEP0_GAP, the token share and gaps recorded;
-     recorded: (c) TP_TIME_STEPS bf16 TP train steps at a global
-     TP_TIME_B (ms a step, peak memory a rank), staged through the host
-     by gloo, not a figure of NCCL tensor parallelism; (d) what NCCL
-     does with two ranks on one card. K1's launches here (every
-     rank's eval decodes) add to its `kernels` entry.
+     within 2 lr; (b) one eval
+     batch of MESH_EVAL_B at flagship widths through `EkaidModel.decode`
+     on the data axis, at f32 (TF32 off) and at bf16: each rank decodes
+     its contiguous block through K1 (once on every rank), and the
+     blocks are gathered; f32: tokens equal to the one-process plain
+     decode up to a near-tie, the equal prefix's logprobs within
+     MESH_LP_GATE of the one-process K1 decode; bf16: step-0 tokens
+     equal up to a near-tie under BF16_STEP0_GAP, the token share and
+     gaps recorded. K1's launches here (every rank's eval decodes) add
+     to its `kernels` entry.
 Prints one `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}, after a `record:` line with every number
 as JSON. Without a CUDA device, or outside the repository, it exits
@@ -388,14 +390,11 @@ COALESCE = 16                      # 15b: the exported coalescing batch
 STARTUP_ITEMS = 4                  # 15b: answers compared bit for bit
 STARTUP_TIMEOUT_S = 420
 DP_IMAGES = 24                     # 15c: three batches of 8 at 1024^2
-TP_DATA, TP_MODEL = 2, 2           # 16: four ranks on one card, gloo
-TP_EVAL_B = 64                     # 16: the eval batch, 32 rows a data rank
-TP_TIME_B = 64                     # 16: the timed bf16 step's global batch
-TP_TIME_STEPS = 3
-TP_PARAM_RTOL, TP_PARAM_ATOL = 2e-4, 2e-6
-TP_LP_GATE = 1e-4                  # 16: f32 eval, logprobs of the prefix
-TP_TIMEOUT_S = 300
-NCCL_PROBE_TIMEOUT_S = 60
+MESH_DATA = 2                      # 16: two ranks on one card, gloo
+MESH_EVAL_B = 64                   # 16: the eval batch, 32 rows a rank
+MESH_LP_GATE = 1e-4                # 16: f32 eval, logprobs of the prefix
+MESH_PARAM_RTOL, MESH_PARAM_ATOL = 2e-4, 2e-6   # 16a: Adam's updates
+MESH_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -4478,7 +4477,7 @@ def dp_phase(rec: dict, cfg, device: str = "cuda") -> tuple:
             seed=SEED, max_iter=2, snapshot_interval=2, log_interval=1))
         tr = build_synthetic_trainer(tcfg, str(work / "trainer"),
                                      device=device)
-        if tr.ddp is None or tr.mesh.world != 1:
+        if tr.ddp is None or tr.mesh.data != 1:
             raise AssertionError("15c: the trainer did not wrap DDP")
         tr.train(eval_fraction=1)
         sync()
@@ -4633,17 +4632,16 @@ def native_match_phase(rec: dict, keep: dict) -> None:
         f"exact)")
 
 
-def tp_child(rank: str, world: str, work: str, lib: str,
-             device: str = "cuda") -> None:
+def mesh_child(rank: str, world: str, work: str, lib: str,
+               device: str = "cuda") -> None:
     """16, one rank in a fresh interpreter: joins the gloo group of
     `world` ranks through a `file://` rendezvous in `work`, all on
     cuda:0 (or the CPU), loads K1's library that phase 2 built (no
-    nvcc), and places itself on the TP_DATA x TP_MODEL mesh. Then, at
-    f32: the eval decode of the eval batch (its data block through K1),
-    and one train step with dropout off on its rows d::data of the
-    global batch, whose full gradients and parameters rank 0 writes; at
-    bf16: the eval decode, then TP_TIME_STEPS timed train steps at
-    TP_TIME_B. Writes its results to work/rank<rank>.pt."""
+    nvcc), and places itself on the data axis. Then, at f32 and at
+    bf16, the eval decode of the eval batch (its block through K1); at
+    f32 also one DDP train step with dropout off on its rows r::data of
+    the global batch, whose gradients and parameters rank 0 writes to
+    work/full.pt. Writes its results to work/rank<rank>.pt."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -4653,7 +4651,6 @@ def tp_child(rank: str, world: str, work: str, lib: str,
     from ekaid_torch.models import greedy_decode as gd
     from ekaid_torch.models.ekaid import EkaidModel
     from ekaid_torch.parallel import mesh
-    from ekaid_torch.parallel.tensor import full_state
     from ekaid_torch.train.step import Forward, init_state, train_step
     from ekaid_torch.utils.dtypes import Policy
     rank, world, work = int(rank), int(world), Path(work)
@@ -4663,92 +4660,51 @@ def tp_child(rank: str, world: str, work: str, lib: str,
     if cuda:
         torch.cuda.set_device(0)
         kernels.load_prebuilt("greedy_decode", lib)
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
     d = torch.load(work / "inputs.pt", weights_only=False)
     dist.init_process_group(
         "gloo", init_method=f"file://{work / 'rendezvous'}", rank=rank,
-        world_size=world, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+        world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
     try:
         cfg = load_config(overrides=d["cfg"])
         grid = mesh.make_mesh(cfg.mesh, device)
-        out = {"grid": (grid.data, grid.model, grid.d, grid.m)}
+        out = {"grid": (grid.rank, grid.data)}
         for dt in ("float32", "bfloat16"):
             c = cfg.replace(dtypes=cfg.dtypes.replace(compute_dtype=dt))
             model = EkaidModel(c, d["ntoken"], policy=Policy.from_config(
                 c.dtypes), device=device, seed=SEED, mesh=grid)
             gd.greedy_decode.launches = 0
             o = model.decode(d["eval_batch"])
-            sync()
+            if cuda:
+                torch.cuda.synchronize()
             out[dt] = {"launches": gd.greedy_decode.launches,
                        "eval": {k: o[k].cpu() for k in (
                            "seq", "logprobs", "module_weights")}}
-            state = init_state(model, c.train.optim)
-            ddp = mesh.wrap(Forward(model), grid)
             if dt == "float32":
-                part = {k: v[grid.d::grid.data]
+                state = init_state(model, c.train.optim)
+                part = {k: v[grid.rank::grid.data]
                         for k, v in d["batch"].items()}
                 m = train_step(state, part, SEED, c.train.att_reg_weight,
-                               train=False, ddp=ddp)
-                grads = {n: (p.grad if p.grad is not None
-                             else torch.zeros_like(p))
-                         for n, p in model.named_parameters()}
-                full = {"grads": full_state(grads, state.opt.shards),
-                        "params": state.state_dict()["params"]}
+                               train=False,
+                               ddp=mesh.wrap(Forward(model), grid))
+                params = dict(model.named_parameters())
                 out[dt]["loss"] = float(m["total_loss"])
-                out[dt]["shapes"] = {n: tuple(p.shape) for n, p in
-                                     model.named_parameters()}
                 out[dt]["sums"] = torch.stack([
-                    p.double().sum().cpu() for p in full["params"].values()])
+                    p.detach().double().sum().cpu() for p in params.values()])
                 if rank == 0:
-                    torch.save({k: {n: t.cpu() for n, t in v.items()}
-                                for k, v in full.items()}, work / "full.pt")
-                del full, grads
-            else:
-                part = {k: v[grid.d::grid.data]
-                        for k, v in d["time_batch"].items()}
-                secs = []
-                if cuda:
-                    torch.cuda.reset_peak_memory_stats()
-                for i in range(TP_TIME_STEPS + 1):
-                    sync()
-                    t0 = time.perf_counter()
-                    m = train_step(state, part, SEED, c.train.att_reg_weight,
-                                   ddp=ddp)
-                    sync()
-                    secs.append(time.perf_counter() - t0)
-                out[dt]["step_ms"] = [x * 1e3 for x in secs[1:]]
-                out[dt]["loss"] = float(m["total_loss"])
-                out[dt]["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
-                                      if cuda else None)
-            del model, state, ddp
+                    torch.save({
+                        "grads": {n: (p.grad if p.grad is not None else
+                                      torch.zeros_like(p)).detach().cpu()
+                                  for n, p in params.items()},
+                        "params": {n: p.detach().cpu()
+                                   for n, p in params.items()}},
+                        work / "full.pt")
+                del state, params
+            del model
             if cuda:
                 torch.cuda.empty_cache()
         torch.save(out, work / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
-
-
-def nccl_probe_child(rank: str, world: str, port: str) -> None:
-    """16c, one of two ranks on cuda:0 in an NCCL group: prints one JSON
-    line with the outcome of an all_reduce."""
-    import datetime
-    import torch
-    import torch.distributed as dist
-    torch.cuda.set_device(0)
-    r = {"rank": int(rank)}
-    try:
-        dist.init_process_group(
-            "nccl", init_method=f"tcp://localhost:{port}", rank=int(rank),
-            world_size=int(world),
-            timeout=datetime.timedelta(seconds=NCCL_PROBE_TIMEOUT_S // 2))
-        x = torch.ones(4, device="cuda")
-        dist.all_reduce(x)
-        torch.cuda.synchronize()
-        r["ok"], r["sum"] = True, x.tolist()
-    except Exception as e:                   # the outcome is the record
-        r["ok"], r["error"] = False, f"{type(e).__name__}: {e}"[:400]
-    print(json.dumps(r), flush=True)
-    os._exit(0)
 
 
 def _children(fn: str, args: list, n: int, timeout: float,
@@ -4786,17 +4742,16 @@ def _children(fn: str, args: list, n: int, timeout: float,
     return res
 
 
-def tp_phase(rec: dict, cfg, device: str = "cuda") -> int:
-    """Phase 16: the data x model mesh. Returns K1's launches on the
-    path (each data rank's eval decodes)."""
+def mesh_phase(rec: dict, cfg, device: str = "cuda") -> int:
+    """Phase 16: the data axis, a DDP train step and the data-sharded
+    eval. Returns K1's launches on the path (each rank's eval
+    decodes)."""
     import shutil
-    import socket
     import torch
     from ekaid_torch import kernels
     from ekaid_torch.data.synthetic import synthetic_batch
     from ekaid_torch.models.ekaid import EkaidModel
     from ekaid_torch.models.greedy_decode import greedy_decode_plain
-    from ekaid_torch.parallel import mesh
     from ekaid_torch.train.step import init_state, train_step
     from ekaid_torch.utils.dtypes import Policy
     cuda = device == "cuda"
@@ -4804,18 +4759,19 @@ def tp_phase(rec: dict, cfg, device: str = "cuda") -> int:
     work = ROOT / "build" / "phase16"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    r = rec["tp"] = {"mesh": [TP_DATA, TP_MODEL], "backend": "gloo"}
-    world = TP_DATA * TP_MODEL
-    tcfg = cfg.replace(mesh=cfg.mesh.replace(data=TP_DATA, model=TP_MODEL))
+    r = rec["mesh"] = {"data": MESH_DATA, "backend": "gloo"}
+    world = MESH_DATA
+    mcfg = cfg.replace(mesh=cfg.mesh.replace(data=MESH_DATA))
     c32 = cfg.replace(dtypes=cfg.dtypes.replace(compute_dtype="float32"))
     ntoken = cfg.speaker.vocab_size - 1
-    inputs = {"cfg": tcfg.to_dict(), "ntoken": ntoken,
+    inputs = {"cfg": mcfg.to_dict(), "ntoken": ntoken,
               "batch": synthetic_batch(c32, TRAIN_B, seed=SEED + 5),
-              "eval_batch": synthetic_batch(cfg, TP_EVAL_B, seed=SEED + 6),
-              "time_batch": synthetic_batch(cfg, TP_TIME_B, seed=SEED + 7)}
+              "eval_batch": synthetic_batch(cfg, MESH_EVAL_B, seed=SEED + 6)}
     torch.save(inputs, work / "inputs.pt")
 
-    # the one-process references on this card
+    # the one-process references on this card; the step takes the ranks'
+    # rows as its microbatches (rows i::MESH_DATA), so its products run
+    # at the ranks' shapes
     sp = cfg.speaker
     one = {}
     for dt in ("float32", "bfloat16"):
@@ -4832,7 +4788,8 @@ def tp_phase(rec: dict, cfg, device: str = "cuda") -> int:
         if dt == "float32":
             state = init_state(model, c.train.optim)
             m = train_step(state, inputs["batch"], SEED,
-                           c.train.att_reg_weight, train=False)
+                           c.train.att_reg_weight, train=False,
+                           accum_steps=MESH_DATA)
             one["loss"] = float(m["total_loss"])
             one["grads"] = {n: p.grad.detach().cpu() if p.grad is not None
                             else torch.zeros(p.shape)
@@ -4844,11 +4801,11 @@ def tp_phase(rec: dict, cfg, device: str = "cuda") -> int:
     if cuda:
         torch.cuda.empty_cache()
 
-    # the four ranks
+    # the ranks
     lib = kernels.load("greedy_decode")._name if cuda else ""
     t0 = time.perf_counter()
-    res = _children("tp_child", [work, lib, device], world, TP_TIMEOUT_S,
-                    work)
+    res = _children("mesh_child", [work, lib, device], world,
+                    MESH_TIMEOUT_S, work)
     r["children_s"] = time.perf_counter() - t0
     for i, (rc, o, e) in enumerate(res):
         if rc != 0:
@@ -4857,21 +4814,12 @@ def tp_phase(rec: dict, cfg, device: str = "cuda") -> int:
     ranks = [torch.load(work / f"rank{i}.pt", weights_only=False)
              for i in range(world)]
     full = torch.load(work / "full.pt", weights_only=False)
-
-    # 16a: the step
-    want = {n: tuple(p.shape) for n, p in one["params"].items()}
-    dims = mesh.param_shardings(want.items(), TP_MODEL)
-    sharded = sorted(n for n, dm in dims.items() if dm is not None)
     for i, rk in enumerate(ranks):
-        if rk["grid"] != (TP_DATA, TP_MODEL, i // TP_MODEL, i % TP_MODEL):
-            raise AssertionError(f"16a: rank {i} sits at {rk['grid']}")
-        for n, shape in rk["float32"]["shapes"].items():
-            s = list(want[n])
-            if dims[n] is not None:
-                s[dims[n]] //= TP_MODEL
-            if tuple(shape) != tuple(s):
-                raise AssertionError(f"16a: rank {i} holds {n} as {shape}, "
-                                     f"the rule table says {tuple(s)}")
+        if rk["grid"] != (i, MESH_DATA):
+            raise AssertionError(f"16: rank {i} sits at {rk['grid']}")
+
+    # 16a: the DDP step
+    for i, rk in enumerate(ranks):
         if not torch.equal(rk["float32"]["sums"], ranks[0]["float32"]["sums"]):
             raise AssertionError(f"16a: rank {i}'s updated parameters differ "
                                  "from rank 0's")
@@ -4889,27 +4837,25 @@ def tp_phase(rec: dict, cfg, device: str = "cuda") -> int:
         strong = (g.abs() > UPDATE_SIGNAL * gap) & (
             g.abs() > 1e3 * optim.epsilon)
         diff = (got - p).abs()
-        excess = diff - (TP_PARAM_ATOL + TP_PARAM_RTOL * p.abs())
+        excess = diff - (MESH_PARAM_ATOL + MESH_PARAM_RTOL * p.abs())
         checked += int(strong.sum())
         over += int((excess > 0).sum())
         worst_all = max(worst_all, float(diff.max()))
         p_err[n] = float(excess[strong].max()) if strong.any() else -1.0
-    elems = sum(math.prod(s) for s in want.values())
+    elems = sum(p.numel() for p in one["params"].values())
     step = r["step"] = {
-        "loss_tp": losses, "loss_one": one["loss"],
+        "loss_ddp": losses, "loss_one": one["loss"],
         "grad_gap": max(gaps.values()),
         "grad_gap_tensor": max(gaps, key=gaps.get),
         "param_excess": max(p_err.values()),
         "param_checked_share": checked / elems,
         "param_over_bar_all": over, "param_gap_max_lr": worst_all / optim.lr,
-        "sharded": len(sharded),
-        "sharded_elems": sum(math.prod(want[n]) for n in sharded),
         "elems": elems}
     if any(abs(x - one["loss"]) > TRAIN_LOSS_RTOL * abs(one["loss"])
            for x in losses):
-        raise AssertionError(f"16a: TP loss {losses} vs one process "
+        raise AssertionError(f"16a: DDP loss {losses} vs one process "
                              f"{one['loss']}")
-    if set(gaps) != set(want) or step["grad_gap"] > TRAIN_GRAD_TOL:
+    if set(gaps) != set(one["params"]) or step["grad_gap"] > TRAIN_GRAD_TOL:
         raise AssertionError(f"16a: gradient gap {step['grad_gap']} in "
                              f"{step['grad_gap_tensor']} > {TRAIN_GRAD_TOL}")
     if step["param_excess"] > 0 or \
@@ -4917,17 +4863,16 @@ def tp_phase(rec: dict, cfg, device: str = "cuda") -> int:
             step["param_gap_max_lr"] > 2.0:
         bad = max(p_err, key=p_err.get)
         raise AssertionError(f"16a: updated parameters off the one-process "
-                             f"step: {bad} past {TP_PARAM_RTOL} rel + "
-                             f"{TP_PARAM_ATOL} abs above the gradient gap, "
+                             f"step: {bad} past {MESH_PARAM_RTOL} rel + "
+                             f"{MESH_PARAM_ATOL} abs above the gradient gap, "
                              f"or too few held: {step}")
-    log(f"[16a] mesh {TP_DATA}x{TP_MODEL} (gloo, {world} processes on one "
-        f"{'card' if cuda else 'CPU'}): {len(sharded)} tensors sharded "
-        f"({step['sharded_elems'] / 1e6:.1f} M of {step['elems'] / 1e6:.1f} "
-        f"M parameters), shapes as the rule table on every rank; f32 step "
-        f"B={TRAIN_B} loss {losses[0]:.7f} vs one process {one['loss']:.7f};"
-        f" largest gradient gap {step['grad_gap']:.2e} of a tensor's max "
+    log(f"[16a] data axis of {world} (gloo, {world} processes on one "
+        f"{'card' if cuda else 'CPU'}): f32 DDP step B={TRAIN_B} loss "
+        f"{losses[0]:.7f} vs one process on the ranks' rows as {world} "
+        f"microbatches {one['loss']:.7f}; largest "
+        f"gradient gap {step['grad_gap']:.2e} of a tensor's max "
         f"({step['grad_gap_tensor']}; gate {TRAIN_GRAD_TOL}); Adam updates "
-        f"within {TP_PARAM_RTOL} rel + {TP_PARAM_ATOL} abs on the "
+        f"within {MESH_PARAM_RTOL} rel + {MESH_PARAM_ATOL} abs on the "
         f"{step['param_checked_share']:.4f} of the elements whose gradient "
         f"stands {UPDATE_SIGNAL:g}x above the gap (past the bar anywhere: "
         f"{step['param_over_bar_all']} elements, at most "
@@ -4942,7 +4887,7 @@ def tp_phase(rec: dict, cfg, device: str = "cuda") -> int:
             if cuda and rk[dt]["launches"] != 1:
                 raise AssertionError(f"16b {dt}: rank {i} launched K1 "
                                      f"{rk[dt]['launches']} times (want 1)")
-            if tuple(o["seq"].shape) != (TP_EVAL_B, sp.seq_length) or not \
+            if tuple(o["seq"].shape) != (MESH_EVAL_B, sp.seq_length) or not \
                     torch.isfinite(o["logprobs"]).all():
                 raise AssertionError(f"16b {dt}: rank {i}'s decode")
             if not all(torch.equal(o[k], outs[0][k]) for k in o):
@@ -4962,9 +4907,9 @@ def tp_phase(rec: dict, cfg, device: str = "cuda") -> int:
                 ref["w"], sp, ref["policy"], ref["fused"], ref["feats"],
                 ref["plain"], got, rec.get("near_tie_tol", NEAR_TIE_FLOOR),
                 "16b f32 eval")
-            if e["prefix_lp_err"] > TP_LP_GATE:
+            if e["prefix_lp_err"] > MESH_LP_GATE:
                 raise AssertionError(f"16b f32: logprobs of the equal prefix "
-                                     f"{e['prefix_lp_err']} > {TP_LP_GATE}")
+                                     f"{e['prefix_lp_err']} > {MESH_LP_GATE}")
         else:
             # step 0: equal tokens, except where the one-process plain
             # version's two best step-0 logprobs are within the bf16 bar
@@ -4980,41 +4925,17 @@ def tp_phase(rec: dict, cfg, device: str = "cuda") -> int:
                     raise AssertionError(f"16b bf16: step-0 tokens differ "
                                          f"off a near-tie: "
                                          f"{e['step0_differ']}")
-        log(f"[16b] eval {dt} B={TP_EVAL_B}, {TP_EVAL_B // TP_DATA} rows a "
-            f"data rank, K1 once on each of the {world} ranks, gathered: "
+        log(f"[16b] eval {dt} B={MESH_EVAL_B}, "
+            f"{MESH_EVAL_B // MESH_DATA} rows a rank, K1 once on each of "
+            f"the {world} ranks, gathered: "
             f"token share vs one process {e['token_share']:.4f}, rows equal "
-            f"{e['rows_equal']}/{TP_EVAL_B}, step-0 logprob gap "
+            f"{e['rows_equal']}/{MESH_EVAL_B}, step-0 logprob gap "
             f"{e['step0_lp_gap']:.2e}, equal prefix logprobs "
             f"{e['prefix_lp_err']:.2e}"
-            + (f" (gate {TP_LP_GATE}; near-tie rows "
+            + (f" (gate {MESH_LP_GATE}; near-tie rows "
                f"{e['near_tie']['rows_differ']})" if dt == "float32" else
                " (gate: step-0 tokens up to a near-tie)"))
 
-    # recorded: the bf16 step over gloo
-    ms = [rk["bfloat16"]["step_ms"] for rk in ranks]
-    r["bf16_step_ms"] = ms
-    r["bf16_peak_gb"] = [rk["bfloat16"]["peak_gb"] for rk in ranks]
-    r["bf16_loss"] = [rk["bfloat16"]["loss"] for rk in ranks]
-    if not all(math.isfinite(x) for x in r["bf16_loss"]):
-        raise AssertionError(f"16: bf16 TP loss {r['bf16_loss']}")
-    log(f"[16c] recorded: bf16 TP train step, global batch {TP_TIME_B}, "
-        f"staged through the host by gloo (not a figure of NCCL tensor "
-        f"parallelism): rank 0 {['%.1f' % x for x in ms[0]]} ms, peak "
-        f"{r['bf16_peak_gb']} GB a rank; the four ranks' phase "
-        f"{r['children_s']:.1f} s")
-
-    # 16d: whether NCCL takes two ranks on one device (recorded)
-    if cuda:
-        with socket.socket() as s_:
-            s_.bind(("localhost", 0))
-            port = s_.getsockname()[1]
-        probe = _children("nccl_probe_child", [port], 2,
-                          NCCL_PROBE_TIMEOUT_S, work)
-        r["nccl_two_ranks_one_card"] = [
-            json.loads(o.strip().splitlines()[-1]) if rc == 0 and o.strip()
-            else {"rc": rc, "stderr": e[-400:]} for rc, o, e in probe]
-        log(f"[16d] NCCL, two ranks on cuda:0: "
-            f"{r['nccl_two_ranks_one_card']}")
     shutil.rmtree(work, ignore_errors=True)
     r["phase_s"] = time.perf_counter() - t_phase
     log(f"[16] {r['phase_s']:.1f} s")
@@ -5258,11 +5179,10 @@ def main() -> dict:
     rec["phase15_s"] = time.perf_counter() - t15
     log(f"[15] {rec['phase15_s']:.1f} s")
 
-    # ---- 16. the data x model mesh: four ranks on the card in a gloo
-    # group, a TP train step against the one-process step, and the
-    # data-sharded eval through K1 on each data rank ---------------------
+    # ---- 16. the data axis: two ranks on the card in a gloo group, a
+    # DDP train step and the data-sharded eval through K1 on each rank --
     torch.cuda.empty_cache()
-    kernels_line[0]["launches"] += tp_phase(rec, cfg)
+    kernels_line[0]["launches"] += mesh_phase(rec, cfg)
     kline = {"kernels": kernels_line}
     log("record: " + json.dumps(rec))
     print(json.dumps(kline))

@@ -6,12 +6,13 @@ names and defaults are the same, so `configs/smoke.yaml` and
 coerced as the reference does (literal_eval, then type coercion).
 
 The mesh's `data` is the size of the data-parallel group (-1: the
-group's size; `parallel/mesh.py`), and its `model` must be 1 (the
-tensor-parallel axis is not ported). Of the detector section,
-the TPU schedule knobs (`s2d_stem`, `roi_group`, `roi_unroll`,
-`rpn_fused_preds`) are accepted and change nothing, since each gives
-the same outputs as its default in the reference; `rpn_topk='approx'`
-runs the exact sort, as the reference does off the TPU.
+group's size; `parallel/mesh.py`), and its `model` must be 1: the port
+has no tensor-parallel axis, since the model fits one device. Of the
+detector section, the TPU schedule knobs (`s2d_stem`, `roi_group`,
+`roi_unroll`, `rpn_fused_preds`) are accepted and change nothing, since
+each gives the same outputs as its default in the reference;
+`rpn_topk='approx'` runs the exact sort, as the reference does off the
+TPU.
 """
 
 from __future__ import annotations

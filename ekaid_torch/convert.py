@@ -11,9 +11,7 @@ parameter as a 7x7 conv). The mode0 encoder's subtrees map the same way:
 named as the detector's ResNet's), `extractor/fc_reshape` and
 `SSRE/{query,key,value,LayerNorm_0}`. Every leaf is consumed exactly
 once; a leaf the model lacks, a parameter the tree lacks, or a shape
-mismatch raises. A model whose parameters are sharded over the mesh's
-model axis (`parallel/tensor.py`) takes this rank's block of each full
-leaf.
+mismatch raises.
 """
 
 from __future__ import annotations
@@ -22,8 +20,6 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
-
-from ekaid_torch.parallel.tensor import shards
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
@@ -62,10 +58,8 @@ def as_torch(value) -> torch.Tensor:
     return t.permute(3, 2, 0, 1) if t.dim() == 4 else t
 
 
-def _copy(dst: torch.Tensor, value, name: str, shard=None) -> None:
+def _copy(dst: torch.Tensor, value, name: str) -> None:
     value = as_torch(value)
-    if shard is not None:
-        value = shard.take(value)
     if tuple(value.shape) != tuple(dst.shape):
         raise ValueError(f"{name}: tree shape {tuple(value.shape)}, model "
                          f"shape {tuple(dst.shape)}")
@@ -95,8 +89,7 @@ def load_optax_state(opt, slots: Mapping, count: int):
             port_key = OPTAX_SLOTS[key]
             leaves = _leaves(tree, opt.names)
             for name, t in zip(opt.names, opt.slots[port_key]):
-                _copy(t, leaves[name], f"{key}.{name}",
-                      opt.shards.get(name))
+                _copy(t, leaves[name], f"{key}.{name}")
     opt.count = int(count)
     return opt
 
@@ -108,8 +101,7 @@ def load_flax_params(model: torch.nn.Module, tree: Mapping
     place."""
     params = dict(model.named_parameters())
     leaves = _leaves(tree, params)
-    by_name = shards(model)
     with torch.no_grad():
         for name, p in params.items():
-            _copy(p, leaves[name], name, by_name.get(name))
+            _copy(p, leaves[name], name)
     return model

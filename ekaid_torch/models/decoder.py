@@ -72,9 +72,9 @@ class DynamicCore(nn.Module):
         c_lang); masks: (vpos, dpos, gate_h) dropout masks or None;
         mod_pre [B, 4R] = fused @ module_att_lstm.w_ih[:E] and
         lang_xt_pre [B, 4R] = xt @ lang_lstm.w_ih[:W], precomputed by
-        teacher forcing's hoist (`LSTMCell.pre_product`: with w_ih
-        sharded, this rank's part). Returns h_lang, the new state, the POS
-        logits and the module weights [B, 3]."""
+        teacher forcing's hoist (`LSTMCell.pre_product`). Returns
+        h_lang, the new state, the POS logits and the module weights
+        [B, 3]."""
         c, p = self.cfg, self.policy
         cast = p.cast_compute
         h_mod, c_mod, prev_h, c_lang = state
@@ -261,9 +261,7 @@ class DynamicSpeaker(nn.Module):
 
     def decode_weights(self) -> Dict[str, torch.Tensor]:
         """The decode weights in the compute dtype, prepared once per
-        parameter set (rebuilt when a parameter moves or changes). With
-        sharded weights they are gathered whole here, once per set: a
-        collective of the model group."""
+        parameter set (rebuilt when a parameter moves or changes)."""
         key = tuple((p.data_ptr(), p._version, p.device)
                     for p in self.parameters())
         if key != self._weights_key:

@@ -21,12 +21,10 @@ objective. `encode`, the greedy `decode` and the beam-search
 On a CUDA device, an encode without gradients and without dropout
 replays a CUDA graph of the encoder, one per input signature
 (`EncodeGraphs`): the same kernels in the same order, launched by the
-host as one graph in place of ~1,500-2,250 operations. Training, the
-CPU and a mesh whose model axis is over 1 (collectives inside the
-encoder) run it eagerly.
+host as one graph in place of ~1,500-2,250 operations. Training and
+the CPU run it eagerly.
 
-On a mesh (`parallel/mesh.py`), the parameters that its rules shard
-over the model axis hold this rank's block (`parallel/tensor.py`), and
+On a mesh (`parallel/mesh.py`), every rank holds the whole model, and
 a greedy decode splits its rows over the data axis (the reference's
 `decode_mesh`): each rank decodes its contiguous block, through K1 on
 the card, and the blocks are gathered back in row order.
@@ -44,7 +42,7 @@ from ekaid_torch.models.change_detector import ChangeDetector
 from ekaid_torch.models.decoder import DynamicSpeaker
 from ekaid_torch.models.layers import init_params
 from ekaid_torch.ops.graph import broadcast_adjacency
-from ekaid_torch.parallel.tensor import gather, shard_parameters
+from ekaid_torch.parallel.mesh import gather
 from ekaid_torch.utils.device import resolve_device
 from ekaid_torch.utils.dtypes import F32, Policy
 from ekaid_torch.utils.observability import count, span
@@ -173,8 +171,6 @@ class EkaidModel(nn.Module):
             init_params(self, torch.Generator().manual_seed(seed))
         #: the `parallel.mesh.Mesh` this model is placed on, or None
         self.mesh = mesh
-        if mesh is not None:
-            shard_parameters(self, mesh)
         self.graphs = EncodeGraphs()
         self.to(dev)
         self.eval()
@@ -203,11 +199,8 @@ class EkaidModel(nn.Module):
 
     def graphs_apply(self, gen=None) -> bool:
         """Whether an encode without gradients replays a CUDA graph: on
-        a CUDA device, without dropout (`gen` None), and with no model
-        axis over 1."""
-        mesh = self.mesh
-        return (self.device.type in GRAPH_DEVICES and gen is None
-                and (mesh is None or mesh.model == 1))
+        a CUDA device and without dropout (`gen` None)."""
+        return self.device.type in GRAPH_DEVICES and gen is None
 
     def _encode(self, b, gen=None) -> Dict[str, torch.Tensor]:
         """The encoder over the batch's tensors `b`, replayed from
@@ -281,7 +274,7 @@ class EkaidModel(nn.Module):
                 gumbel=gumbel, gen=gen, early_exit=early_exit)
         out = {**enc, **dec}
         if split:
-            out = {k: gather(v, mesh.data_group, 0) for k, v in out.items()}
+            out = {k: gather(v, 0) for k, v in out.items()}
         return out
 
     def _rows_of_this_rank(self, b) -> Dict[str, torch.Tensor]:
@@ -293,7 +286,7 @@ class EkaidModel(nn.Module):
             raise ValueError(f"decode batch {n} does not split over the "
                              f"{parts} ranks of the data axis")
         k = n // parts
-        return {key: v[self.mesh.d * k:(self.mesh.d + 1) * k]
+        return {key: v[self.mesh.rank * k:(self.mesh.rank + 1) * k]
                 for key, v in b.items()}
 
     @torch.no_grad()

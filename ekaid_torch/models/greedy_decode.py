@@ -32,7 +32,6 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ekaid_torch.models.layers import lstm_gates
-from ekaid_torch.parallel.tensor import full_tensor
 from ekaid_torch.utils.dtypes import Policy
 
 #: decode weights, in the kernel's pointer order
@@ -245,18 +244,12 @@ def decode_plan(B: int, E: int, R: int, D: int, W: int, V: int, P: int,
 
 def decode_weights(speaker, cfg, policy: Policy) -> Dict[str, torch.Tensor]:
     """Compute-dtype, contiguous copies of a DynamicSpeaker's decode
-    weights; lang_lstm.w_ih is split at word_embed_size. Weights sharded
-    over the model axis are gathered whole (a collective of its
-    group)."""
+    weights; lang_lstm.w_ih is split at word_embed_size."""
     core, W = speaker.core, cfg.word_embed_size
-
-    def whole(module, name):
-        return full_tensor(getattr(module, name), module.shard)
-
-    lang_wih = whole(core.lang_lstm, "w_ih")
+    lang_wih = core.lang_lstm.w_ih
     src = {
         "wemb": speaker.word_emb,
-        "wih_mod": whole(core.module_att_lstm, "w_ih"),
+        "wih_mod": core.module_att_lstm.w_ih,
         "whh_mod": core.module_att_lstm.w_hh,
         "b_mod": core.module_att_lstm.b,
         "wfc": core.weight_fc.kernel, "bfc": core.weight_fc.bias,
@@ -267,7 +260,7 @@ def decode_weights(speaker, cfg, policy: Policy) -> Dict[str, torch.Tensor]:
         "wg2": core.gate2x.kernel, "bg2": core.gate2x.bias,
         "wih_x": lang_wih[:W], "wih_a": lang_wih[W:],
         "whh_lang": core.lang_lstm.w_hh, "b_lang": core.lang_lstm.b,
-        "wlogit": whole(speaker.logit, "kernel"),
+        "wlogit": speaker.logit.kernel,
         "blogit": speaker.logit.bias,
     }
     with torch.no_grad():
@@ -430,9 +423,8 @@ def _packed_weights(w, plan: DecodePlan) -> Dict[str, torch.Tensor]:
     """The product weights packed for `plan`, made once per parameter set
     and tile widths (the last few kept). An entry is found only for the
     same source tensors, unchanged since. It holds them by weak
-    reference, so it keeps no set alive (weights gathered from model
-    shards for one eval included) and dies with its set: a set made
-    later at the same addresses packs anew."""
+    reference, so it keeps no set alive and dies with its set: a set
+    made later at the same addresses packs anew."""
     jobs = {j.kind: j for js in plan.phases for j in js}
     names = [(n, kind) for kind, ns in PRODUCT_WEIGHTS.items() for n in ns]
     src = tuple(w[n] for n, _ in names)

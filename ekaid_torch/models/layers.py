@@ -11,14 +11,6 @@ f32 accumulation, one rounding to the compute dtype.
 Dropout is inverted dropout (`dropout`): a module drops only when its
 forward is given a `torch.Generator` on the tensor's device, and is the
 identity without one (eval, decode, and the deterministic train step).
-
-Tensor parallelism: `parallel/tensor.py::shard_parameters` cuts a
-parameter that the mesh's rules shard to this rank's block and sets
-the module's `shard`; `shardable` names the parameters and dims each
-layer runs sharded. Column-sharded products (DenseT, GRU's w_ih) join
-the ranks' output columns before the bias; row-sharded ones (DenseT,
-WNDense's v, LSTMCell's w_ih) sum the ranks' f32 partial products over
-the model group, then round once to the compute dtype.
 """
 
 from __future__ import annotations
@@ -28,8 +20,6 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ekaid_torch.parallel.tensor import (column_product, copy_in,
-                                        reduce_out, row_partial)
 from ekaid_torch.utils.dtypes import F32, Policy
 
 
@@ -80,9 +70,6 @@ def init_params(module: nn.Module, gen: torch.Generator) -> nn.Module:
 class DenseT(nn.Module):
     """Dense layer: y = x @ kernel (+ bias), kernel [in, out]."""
 
-    shardable = {"kernel": (0, 1)}
-    shard = None
-
     def __init__(self, in_features: int, features: int,
                  use_bias: bool = True, policy: Policy = F32):
         super().__init__()
@@ -98,14 +85,8 @@ class DenseT(nn.Module):
             self.bias.copy_(_uniform(self.bias.shape, fan_in, gen))
 
     def forward(self, x):
-        p, s = self.policy, self.shard
-        if s is None:
-            y = p.mm(p.cast_compute(x), p.cast_compute(self.kernel))
-        elif s.dim == 1:
-            y = column_product(p, x, self.kernel, s)
-        else:
-            y = p.cast_compute(reduce_out(
-                row_partial(p, x, self.kernel, s), s.group))
+        p = self.policy
+        y = p.mm(p.cast_compute(x), p.cast_compute(self.kernel))
         if self.bias is not None:
             y = y + p.cast_compute(self.bias)
         return y
@@ -113,13 +94,7 @@ class DenseT(nn.Module):
 
 class WNDense(nn.Module):
     """Weight-normalized dense: kernel = g * v / ||v||_F (scalar g),
-    the norm taken in f32 on the raw parameter. With v sharded by rows,
-    ||v||^2 is the sum of the ranks' blocks' sums of squares, and the
-    scale g / ||v|| enters the blocks through `copy_in`, so that its
-    gradient (and so g's and the norm's) is the whole kernel's."""
-
-    shardable = {"v": (0,)}
-    shard = None
+    the norm taken in f32 on the raw parameter."""
 
     def __init__(self, in_features: int, features: int,
                  use_bias: bool = True, policy: Policy = F32):
@@ -143,16 +118,10 @@ class WNDense(nn.Module):
             self.bias.copy_(_uniform(self.bias.shape, fan_in, gen))
 
     def forward(self, x):
-        p, s = self.policy, self.shard
+        p = self.policy
         v = self.v.float()
-        if s is None:
-            kernel = (self.g.float() / frobenius(v)) * v
-            y = p.mm(p.cast_compute(x), p.cast_compute(kernel))
-        else:
-            norm = torch.sqrt(reduce_out(torch.sum(v * v), s.group))
-            kernel = copy_in(self.g.float() / norm, s.group) * v
-            y = p.cast_compute(reduce_out(row_partial(p, x, kernel, s),
-                                          s.group))
+        kernel = (self.g.float() / frobenius(v)) * v
+        y = p.mm(p.cast_compute(x), p.cast_compute(kernel))
         if self.bias is not None:
             y = y + p.cast_compute(self.bias)
         return y
@@ -196,12 +165,7 @@ def lstm_gates(z, c_prev):
 
 class LSTMCell(nn.Module):
     """torch.nn.LSTMCell math on one [x, h] @ w_ih / h @ w_hh pair with
-    the two biases folded into `b`. With w_ih sharded by rows, each rank
-    multiplies the input features that meet its rows (`pre` included)
-    and the ranks' f32 parts are summed before the rounding."""
-
-    shardable = {"w_ih": (0,)}
-    shard = None
+    the two biases folded into `b`."""
 
     def __init__(self, in_dim: int, hidden: int, policy: Policy = F32):
         super().__init__()
@@ -217,11 +181,8 @@ class LSTMCell(nn.Module):
 
     def pre_product(self, x):
         """The contribution of w_ih's first x.shape[-1] rows, for
-        `forward`'s `pre`: rounded to the compute dtype, or sharded this
-        rank's f32 part of it."""
-        p, s = self.policy, self.shard
-        if s is not None:
-            return row_partial(p, x, self.w_ih, s)
+        `forward`'s `pre`, rounded to the compute dtype."""
+        p = self.policy
         return p.mm(p.cast_compute(x),
                     p.cast_compute(self.w_ih)[:x.shape[-1]])
 
@@ -229,17 +190,10 @@ class LSTMCell(nn.Module):
         """pre [B, 4H]: the first `pre_width` rows' contribution from
         `pre_product`; x then carries the remaining rows' features
         only."""
-        p, s = self.policy, self.shard
-        if s is None:
-            xw = p.mm(p.cast_compute(x),
-                      p.cast_compute(self.w_ih)[pre_width:])
-            if pre is not None:
-                xw = xw + pre
-        else:
-            part = row_partial(p, x, self.w_ih, s, offset=pre_width)
-            if pre is not None:
-                part = part + pre
-            xw = p.cast_compute(reduce_out(part, s.group))
+        p = self.policy
+        xw = p.mm(p.cast_compute(x), p.cast_compute(self.w_ih)[pre_width:])
+        if pre is not None:
+            xw = xw + pre
         z = (xw + p.mm(p.cast_compute(h), p.cast_compute(self.w_hh))
              + p.cast_compute(self.b))
         return lstm_gates(z, p.cast_compute(c))
@@ -249,13 +203,7 @@ class GRU(nn.Module):
     """Full-sequence GRU (torch.nn.GRU, batch_first, h0 = 0).
 
     x [B, L, D] -> [B, L, H]; the input projection runs once over the
-    whole sequence, the recurrent product once per step. With w_ih
-    sharded by columns, the ranks' columns of the projection are joined
-    before the gates are cut from it (a block need not hold whole
-    gates)."""
-
-    shardable = {"w_ih": (1,)}
-    shard = None
+    whole sequence, the recurrent product once per step."""
 
     def __init__(self, in_dim: int, hidden: int, policy: Policy = F32):
         super().__init__()
@@ -271,9 +219,8 @@ class GRU(nn.Module):
             p.copy_(_uniform(p.shape, self.hidden, gen))
 
     def forward(self, x):
-        p, s = self.policy, self.shard
-        x_proj = (p.mm(p.cast_compute(x), p.cast_compute(self.w_ih))
-                  if s is None else column_product(p, x, self.w_ih, s))
+        p = self.policy
+        x_proj = p.mm(p.cast_compute(x), p.cast_compute(self.w_ih))
         x_proj = x_proj + p.cast_compute(self.b_ih)
         w_hh = p.cast_compute(self.w_hh)
         b_hh = p.cast_compute(self.b_hh)

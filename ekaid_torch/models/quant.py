@@ -65,13 +65,7 @@ def make_quant_core_step(core: torch.nn.Module, policy: Policy):
     """The eval-mode DynamicCore step over int8 weights: the core's own
     forward (`torch.func.functional_call`) on the large matrices
     dequantized, (q.float() * s) in the compute dtype, and the other
-    parameters cast to it. The weights are dequantized here, once.
-    Weights sharded over the model axis raise: a column's scale spans
-    every row of the whole matrix, and the core's forward runs the
-    blocks."""
-    if any(getattr(m, "shard", None) is not None for m in core.modules()):
-        raise ValueError("speaker.weight_quant='int8' decodes on whole "
-                         "weights; it does not run with mesh.model > 1")
+    parameters cast to it. The weights are dequantized here, once."""
     dt = policy.compute_dtype
     w = {k: (v[0].float() * v[1]).to(dt) if isinstance(v, tuple) else v
          for k, v in quantize_core_params(core, policy).items()}

@@ -272,10 +272,7 @@ def load_params(model: torch.nn.Module, params: Dict[str, torch.Tensor]
                 ) -> torch.nn.Module:
     """Load a converted VQA state dict into `model` strictly, except for
     GAT direction-0 entries that a `dir_reduce='reference'` model has no
-    parameters for; a sharded model takes this rank's blocks. Returns
-    model."""
-    from ekaid_torch.parallel.tensor import local_state, shards
-    params = local_state(params, shards(model))
+    parameters for. Returns model."""
     own = model.state_dict()
     extra = [k for k in params if k not in own]
     unused = [k for k in extra if ".gat.neighbor_net_0." not in k]

@@ -20,9 +20,7 @@ each step (the decode weight caches key on it).
 
 Random draws are a function of (seed, step, microbatch, and the index
 on a data axis of several processes): a resumed run draws what the
-uninterrupted run drew, and no generator state is saved. The ranks of
-one model group share their data index, so their dropout masks on the
-replicated activations are equal.
+uninterrupted run drew, and no generator state is saved.
 
 Data parallel (`train_step(..., ddp=...)`, `parallel/mesh.py`): each
 data rank's batch is its part of the global batch. The loss is the
@@ -34,15 +32,9 @@ the data group, so each rank's term is scaled by the data axis's size
 first: the all-reduced gradient is then the global loss's, on every
 rank, whatever the ranks' answer lengths. (Averaging per-rank mean
 losses would weight each rank's tokens by the inverse of its own token
-count.)
-
-Tensor parallel (the model's mesh has a model axis over 1): the
-parameters that the mesh's rules shard hold this rank's block, and so
-do their gradients and optimizer slots; the update is elementwise, so
-each rank updates its blocks. The global norm (for grad_clip and the
-grad_norm metric) adds the blocks' squares over the model group. A
-state dict (`TrainState.state_dict`) holds full tensors, gathered over
-the model group, so a snapshot restores at any mesh.
+count.) Every rank holds the whole model and optimizer state, so a
+state dict (`TrainState.state_dict`) is the same on every rank and
+restores at any data axis.
 """
 
 from __future__ import annotations
@@ -60,7 +52,6 @@ from torch.func import functional_call
 from ekaid_torch.models.ekaid import total_loss
 from ekaid_torch.models.layers import WNDense, frobenius
 from ekaid_torch.parallel.mesh import all_reduce_sum
-from ekaid_torch.parallel.tensor import full_state, local_state, shards
 
 KINDS = ("adam", "sgd", "sgdm", "sgdmom", "rmsprop", "adagrad")
 ADAGRAD_INIT = 0.1
@@ -121,8 +112,6 @@ class Optimizer:
         self.schedule = schedule
         self.names = [n for n, _ in model.named_parameters()]
         self.params = [p for _, p in model.named_parameters()]
-        #: the parameters sharded over the model axis, by name
-        self.shards = shards(model)
         self.transition = (optim_cfg.step_size * steps_per_epoch
                            if steps_per_epoch else 0)
         self.count = 0
@@ -152,7 +141,7 @@ class Optimizer:
         c = self.cfg
         if c.grad_clip > 0:
             if grad_norm is None:
-                grad_norm = self.global_norm(grads)
+                grad_norm = global_norm(grads)
             under = grad_norm < c.grad_clip
             denom = torch.where(under, torch.ones_like(grad_norm), grad_norm)
             mult = torch.where(under, torch.ones_like(grad_norm),
@@ -197,18 +186,6 @@ class Optimizer:
                  for a, g in zip(s["acc"], grads)]
         torch._foreach_add_(self.params, u, alpha=-lr)
 
-    def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        """`global_norm` of the full gradients: a sharded tensor's sum
-        of squares is summed over its model group first."""
-        if not self.shards:
-            return global_norm(grads)
-        sq = torch.stack([torch.sum(g.float() * g.float()) for g in grads])
-        sharded = torch.tensor([n in self.shards for n in self.names],
-                               device=sq.device)
-        group = next(iter(self.shards.values())).group
-        sq = torch.where(sharded, all_reduce_sum(sq * sharded, group), sq)
-        return frobenius(torch.sqrt(sq))
-
     def state_dict(self) -> dict:
         return {"count": self.count,
                 "slots": {k: dict(zip(self.names, v))
@@ -244,33 +221,21 @@ class TrainState:
     opt: Optimizer
 
     def state_dict(self) -> dict:
-        """The step, the parameters and the optimizer state, with full
-        tensors: sharded ones are gathered over the model group (every
-        rank of it must call this together)."""
-        by_name = self.opt.shards
-        opt = self.opt.state_dict()
-        opt["slots"] = {k: full_state(v, by_name)
-                        for k, v in opt["slots"].items()}
-        return {"step": self.step,
-                "params": full_state(self.model.state_dict(), by_name),
-                "opt": opt}
+        """The step, the parameters and the optimizer state."""
+        return {"step": self.step, "params": self.model.state_dict(),
+                "opt": self.opt.state_dict()}
 
     def load_state_dict(self, sd: dict) -> None:
         """A file without "opt" holds parameters only (a converted
         reference checkpoint, `tools/torch_convert.py --kind model`):
-        the optimizer keeps the state it has. Full tensors are cut to
-        this rank's blocks."""
+        the optimizer keeps the state it has."""
         self.step = int(sd["step"])
         if "opt" not in sd:
             from ekaid_torch.tools.torch_convert import load_params
             load_params(self.model, sd["params"])
             return
-        by_name = self.opt.shards
-        self.model.load_state_dict(local_state(sd["params"], by_name))
-        self.opt.load_state_dict(
-            {"count": sd["opt"]["count"],
-             "slots": {k: local_state(v, by_name)
-                       for k, v in sd["opt"]["slots"].items()}})
+        self.model.load_state_dict(sd["params"])
+        self.opt.load_state_dict(sd["opt"])
 
 
 def init_state(model: nn.Module, optim_cfg,
@@ -356,8 +321,7 @@ def train_step(state: TrainState, batch, seed: int,
         raise ValueError("a DDP step needs the model's mesh: build it "
                          "with EkaidModel(..., mesh=parallel.mesh."
                          "make_mesh(...))")
-    data, d, group = ((mesh.data, mesh.d, mesh.data_group)
-                      if ddp is not None else (1, 0, None))
+    data, d = (mesh.data, mesh.rank) if ddp is not None else (1, 0)
 
     def loss_fn(mb, micro, lang_denom=None, batch_denom=None):
         gens = {}
@@ -385,7 +349,7 @@ def train_step(state: TrainState, batch, seed: int,
         sums = torch.stack([b["masks"][:, 1:].float().sum(),
                             torch.tensor(float(B), device=dev)])
         if ddp is not None:
-            sums = all_reduce_sum(sums, group)
+            sums = all_reduce_sum(sums)
         lang_denom = torch.clamp(sums[0], min=1.0)
         batch_denom = sums[1] if ddp is not None else B
     loss, aux = 0.0, {}
@@ -403,12 +367,11 @@ def train_step(state: TrainState, batch, seed: int,
             aux[k] = aux.get(k, 0.0) + v.detach()
     if ddp is not None:
         keys = list(aux)
-        sums = all_reduce_sum(torch.stack([loss] + [aux[k] for k in keys]),
-                              group)
+        sums = all_reduce_sum(torch.stack([loss] + [aux[k] for k in keys]))
         loss, aux = sums[0], dict(zip(keys, sums[1:]))
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in opt.params]
-    gn = opt.global_norm(grads)
+    gn = global_norm(grads)
     opt.step(grads, gn)
     state.step += 1
     return {"total_loss": loss, **aux, "grad_norm": gn}

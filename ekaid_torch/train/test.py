@@ -10,16 +10,15 @@ seconds (%d pairs, %.2f pairs/s)") and each caption score.
     python -m ekaid_torch.train.test --synthetic --device cpu \
         --cfg configs/smoke.yaml --max_batches 1
     python -m ekaid_torch.train.test --synthetic --profile build/prof
-    torchrun --nproc_per_node 4 -m ekaid_torch.train.test -p <snapshots> \
-        mesh.model 2
+    torchrun --nproc_per_node 2 -m ekaid_torch.train.test -p <snapshots>
 
 A checkpoint is the port's `<name>.pt` or the reference's orbax
 directory `<name>/` (`utils/checkpoint.py`; the orbax form needs
 tensorstore). It runs on the CUDA device and raises without one, unless
 `--device cpu` is asked for. Under `torchrun` it runs on the trainer's
-mesh (`train/train.py`): each rank restores its blocks of the
-checkpoint, the greedy decode splits every batch's rows over the data
-axis, and rank 0 alone prints, scores and writes the results.
+mesh (`train/train.py`): each rank restores the whole checkpoint, the
+greedy decode splits every batch's rows over the data axis, and rank 0
+alone prints, scores and writes the results.
 `--profile DIR` traces the restore and the eval (rank 0's) with
 torch.profiler into `DIR/trace.json` (`utils/observability.profile`),
 the eval's spans (`ekaid.eval.*`, `ekaid.decode.*`) among its host

@@ -5,8 +5,6 @@
     python -m ekaid_torch.train.train --synthetic --device cpu \
         --cfg configs/smoke.yaml --max_iter 4 --snapshot_interval 2
     torchrun --nproc_per_node 2 -m ekaid_torch.train.train --synthetic
-    torchrun --nproc_per_node 4 -m ekaid_torch.train.train --synthetic \
-        mesh.model 2
 
 The loop: per epoch the scheduled-sampling probability, then per batch
 one `train_step`, a log line every `log_interval` steps, and every
@@ -26,24 +24,20 @@ decodes with beam search (`EkaidModel.decode_beam`, plain torch) from
 the loader's wire batches.
 
 The mesh: under `torchrun` (or any joined `torch.distributed` group)
-the group's processes, one device each, form a data x model grid
-(`parallel/mesh.py`): `mesh.model` must divide the world, and
-`mesh.data` is -1 or world / model, else it raises. The model's
-rule-matched parameters and their optimizer slots hold the rank's block
-of the model axis (`parallel/tensor.py`), and the model trains in DDP
-over the data group. Each rank reads `train.batch_size / data` pairs a
-step: the Loader's shard d of `data` (the rank's data index) takes
-every data-th pair of the epoch's shuffled order, so the data ranks'
-batches of step i are together exactly the one-process batch i of
-`train.batch_size` pairs, the reference's global batch, and the ranks
-of a model group read the same pairs. Length buckets apply with one
-process only (each rank would pick its own). The loss is the global
-batch's (`train/step.py`). At a snapshot every rank gathers the full
-state (a collective of its model group) and every rank evaluates: a
-greedy decode splits each eval batch's rows over the data axis, each
-rank decodes its block (K1 on the card) and the blocks are gathered
-(`EkaidModel.decode`); beam search decodes the whole batch on every
-rank. Rank 0 alone detokenizes, scores, logs and writes snapshots and
+the group's processes, one device each, form the data axis
+(`parallel/mesh.py`): `mesh.data` is -1 or the world, and `mesh.model`
+must be 1, else it raises. Every rank holds the whole model, which
+trains in DDP over the group. Each rank reads `train.batch_size / data`
+pairs a step: the Loader's shard d of `data` (the rank's index) takes
+every data-th pair of the epoch's shuffled order, so the ranks' batches
+of step i are together exactly the one-process batch i of
+`train.batch_size` pairs, the reference's global batch. Length buckets
+apply with one process only (each rank would pick its own). The loss is
+the global batch's (`train/step.py`). At a snapshot every rank
+evaluates: a greedy decode splits each eval batch's rows over the data
+axis, each rank decodes its block (K1 on the card) and the blocks are
+gathered (`EkaidModel.decode`); beam search decodes the whole batch on
+every rank. Rank 0 alone detokenizes, scores, logs and writes snapshots and
 the workdir's files; the ranks meet at a barrier after each snapshot.
 The device image cache is off with more than one process.
 """
@@ -52,7 +46,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import sys
 import time
@@ -168,16 +161,12 @@ class Trainer:
         signal.signal(signal.SIGINT, _request_stop)
 
     def _dump_model_print(self):
-        """<workdir>/model_print: each parameter's name, full shape and
-        dtype (a sharded one's blocks joined), and the total count."""
+        """<workdir>/model_print: each parameter's name, shape and dtype,
+        and the total count."""
         lines, total = [], 0
-        by_name = self.state.opt.shards
         for name, p in self.model.named_parameters():
-            shape = list(p.shape)
-            if name in by_name:
-                shape[by_name[name].dim] = by_name[name].size
-            lines.append(f"{name}  {tuple(shape)}  {p.dtype}")
-            total += math.prod(shape)
+            lines.append(f"{name}  {tuple(p.shape)}  {p.dtype}")
+            total += p.numel()
         lines.append(f"total parameters: {total:,}")
         with open(os.path.join(self.workdir, "model_print"), "w") as f:
             f.write("\n".join(lines) + "\n")
@@ -198,8 +187,8 @@ class Trainer:
                         shuffle=True, seed=cfg.train.seed,
                         num_threads=cfg.data.num_workers,
                         prefetch=cfg.data.prefetch,
-                        shard_index=self.mesh.d, num_shards=data)
-        buckets = cfg.train.length_buckets if self.mesh.world == 1 else ()
+                        shard_index=self.mesh.rank, num_shards=data)
+        buckets = cfg.train.length_buckets if data == 1 else ()
         # exact mid-epoch resume: the restored epoch's permutation, less
         # the batches already taken
         loader.epoch = epoch
@@ -223,9 +212,8 @@ class Trainer:
             ss_prob = ss_prob_for_epoch(cfg, epoch)
             for batch in device_batches():
                 if self.stop_requested:
-                    sd = self.state.state_dict()
                     if self.lead:
-                        self.ckpt.save(sd, config_dict=cfg.to_dict())
+                        self.ckpt.save(self.state, config_dict=cfg.to_dict())
                         print(f"preempted at iter {t}: checkpoint saved; "
                               f"resume with --resume")
                     return last_metrics
@@ -265,9 +253,9 @@ class Trainer:
 
     def snapshot_and_eval(self, t: int,
                           max_batches: Optional[int] = None) -> Dict:
-        """On every rank together: the full state is gathered and every
-        rank evaluates; rank 0 alone writes, scores and logs (the other
-        ranks return empty scores)."""
+        """On every rank together: every rank evaluates; rank 0 alone
+        writes, scores and logs (the other ranks return empty
+        scores)."""
         sd = self.state.state_dict()
         if self.lead:
             self.ckpt.save(sd, config_dict=self.cfg.to_dict())
@@ -344,7 +332,7 @@ class Trainer:
         if use_cache is None:
             use_cache = cfg.data.eval_device_cache > 0
         # the cache's slots are this process's: a mesh reads the wire
-        use_cache = use_cache and self.mesh.world == 1
+        use_cache = use_cache and self.mesh.data == 1
         # the cache holds graph features: mode0 reads the wire batches
         if use_cache and beam_size == 1 and cfg.data.feature_mode != "mode0":
             batches = self._cached_batches(

@@ -39,9 +39,8 @@ class CheckpointManager:
 
     def save(self, state, name: Optional[str] = None,
              config_dict: Optional[dict] = None) -> str:
-        """Write `state` (a TrainState, or what its `state_dict()` gave:
-        on a mesh, the full tensors gathered by every rank of a model
-        group) as <name>.pt, name defaulting to its step, through a
+        """Write `state` (a TrainState, or what its `state_dict()` gave)
+        as <name>.pt, name defaulting to its step, through a
         temporary file so a reader never sees half a checkpoint."""
         sd = state if isinstance(state, dict) else state.state_dict()
         name = name if name is not None else int(sd["step"])
@@ -74,8 +73,7 @@ class CheckpointManager:
     def restore(self, state, name: Optional[str] = None):
         """Load checkpoint `name` (default: the latest step) into
         `state` in place, onto its model's device; returns it. `<name>.pt`
-        first, else the reference's orbax directory `<name>/`. The file
-        holds full tensors; a sharded model takes its blocks of them."""
+        first, else the reference's orbax directory `<name>/`."""
         if name is None:
             name = self.latest_step()
             if name is None:

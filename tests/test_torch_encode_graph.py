@@ -193,7 +193,7 @@ def test_a_replaced_parameter_drops_the_graphs(small, stand_in):
     assert len(stand_in) == 2 and stand_in[1].replays == 3
 
 
-def test_gradients_a_generator_or_a_model_axis_run_eager(small, stand_in):
+def test_gradients_or_a_generator_run_eager(small, stand_in):
     cfg, model = small
     b = _batch(cfg, 3)
     for _ in range(3):
@@ -201,13 +201,9 @@ def test_gradients_a_generator_or_a_model_axis_run_eager(small, stand_in):
     with torch.no_grad():
         for _ in range(3):                                # dropout
             model.forward(b, gen=torch.Generator().manual_seed(0))
-    assert len(model.graphs._known) == 0
+    assert len(model.graphs._known) == 0 and not stand_in
     try:
-        model.mesh = SimpleNamespace(data=1, model=2)
-        for _ in range(3):
-            model.decode(b)
-        assert len(model.graphs._known) == 0 and not stand_in
-        model.mesh = SimpleNamespace(data=1, model=1)     # a data axis
+        model.mesh = SimpleNamespace(data=1)              # a data axis
         for _ in range(3):
             model.decode(b)
         assert len(stand_in) == 1 and stand_in[0].replays == 2

@@ -60,7 +60,7 @@ def test_port_imports_no_jax_and_no_reference_package(probe):
                  "viz.examples", "models.quant", "native.bindings",
                  "native", "models.change_detector", "models.ekaid",
                  "serving.artifact", "parallel", "parallel.mesh",
-                 "parallel.tensor", "kernels"):
+                 "kernels"):
         assert f"ekaid_torch.{name}" in probe["modules"], name
     assert probe["loaded"] == []
 

@@ -15,35 +15,24 @@ the mean of the halves' own mean losses; the test shows that the
 latter, what plain per-rank averaging gives, misses the bound."""
 
 import dataclasses
-import os
-import pickle
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
+from _torch_ddp import ATT_REG, launch, one_process_step
 from _torch_port import NTOKEN, init_flax, port_cfg, tiny_cfg, to_np
 from ekaid_tpu.data.synthetic import synthetic_batch
 from ekaid_tpu.models import ekaid as jax_ekaid
 from ekaid_tpu.models.ekaid import EkaidModel as JaxModel
 from ekaid_tpu.utils.dtypes import F32 as JF32
 from ekaid_torch.config import MeshConfig
-from ekaid_torch.convert import as_torch, flatten, load_flax_params
-from ekaid_torch.models.ekaid import EkaidModel
+from ekaid_torch.convert import as_torch, flatten
 from ekaid_torch.parallel import mesh
-from ekaid_torch.train.step import init_state, train_step
-from ekaid_torch.utils.dtypes import F32
 
-HERE = Path(__file__).resolve().parent
 WORLD = 2
 B = 8
-RANK_TIMEOUT_S = 120
-ATT_REG = 2.5e-3
 ONE_PROCESS_RTOL = 1e-6       # of the largest gradient magnitude
 #: of the largest gradient magnitude. The port's one-process f32 step
 #: itself stands 6.1e-5 of it from the reference's on this batch, in the
@@ -74,11 +63,6 @@ def _batch(cfg):
     return batch
 
 
-def _grads(model):
-    return {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-            .detach().clone() for n, p in model.named_parameters()}
-
-
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
     """The flax params, the global batch, the one-process port step's
@@ -102,40 +86,16 @@ def setup(tmp_path_factory):
     pcfg = port_cfg(cfg)
 
     def port_step(b):
-        model = load_flax_params(EkaidModel(pcfg, NTOKEN, policy=F32,
-                                            device="cpu", seed=None), tree)
-        m = train_step(init_state(model, pcfg.train.optim), b, 0, ATT_REG,
-                       train=False)
-        return float(m["total_loss"]), _grads(model)
+        r = one_process_step(pcfg, tree, NTOKEN, b)
+        return r["metrics"]["total_loss"], r["grads"]
 
     one_loss, one = port_step(batch)
     halves = [port_step({k: v[r::WORLD] for k, v in batch.items()})[1]
               for r in range(WORLD)]
-
-    tmp = tmp_path_factory.mktemp("ddp")
-    inputs = tmp / "inputs.pkl"
-    with open(inputs, "wb") as f:
-        pickle.dump({"cfg": pcfg.to_dict(), "tree": tree, "batch": batch,
-                     "ntoken": NTOKEN}, f)
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(HERE), str(HERE.parent), os.environ.get("PYTHONPATH", "")]))
-    procs = [subprocess.Popen(
-        [sys.executable, str(HERE / "_torch_ddp.py"), str(r), str(WORLD),
-         str(tmp / "rendezvous"), str(inputs), str(tmp / f"rank{r}.pt")],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{log}"
-    ranks = [torch.load(tmp / f"rank{r}.pt") for r in range(WORLD)]
+    ranks = [res["step"] for res in launch(
+        tmp_path_factory.mktemp("ddp"), WORLD,
+        {"cfg": pcfg.to_dict(), "tree": tree, "batch": batch,
+         "ntoken": NTOKEN, "tasks": ["step"]})]
     return {"batch": batch, "one": one, "one_loss": one_loss,
             "halves": halves, "ranks": ranks, "jax": jgrads,
             "jax_loss": float(jloss)}
@@ -192,7 +152,7 @@ def test_per_rank_mean_averaging_misses_the_bound(setup):
 
 
 @pytest.mark.parametrize("axes,error,msg", [
-    ({"model": 2}, ValueError, "mesh.model=2 does not divide the 1 process"),
+    ({"model": 2}, ValueError, "mesh.model=2: the port has no model axis"),
     ({"data": 2}, ValueError, "mesh.data=2 but the data axis has 1"),
     ({"data": 0}, ValueError, "mesh.data=0"),
 ])
@@ -204,8 +164,7 @@ def test_data_axis_refuses(axes, error, msg):
 @pytest.mark.parametrize("data", [-1, 1])
 def test_data_axis_of_one_process(data):
     axis = mesh.make_mesh(MeshConfig(data=data), "cpu")
-    assert (axis.rank, axis.world, axis.distributed) == (0, 1, False)
-    assert (axis.data, axis.model, axis.d, axis.m) == (1, 1, 0, 0)
+    assert (axis.rank, axis.data, axis.distributed) == (0, 1, False)
 
 
 def test_dp_extraction_over_two_cpu_replicas():

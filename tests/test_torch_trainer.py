@@ -236,13 +236,23 @@ def test_trainer_and_main_need_a_card_unless_asked_for_the_cpu(tmp_path):
                         "--workdir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("axis,error,msg", [
-    ("model", ValueError, "mesh.model=2 does not divide the 1 process"),
-    ("data", ValueError, "mesh.data=2 but the data axis has 1")])
-def test_trainer_refuses_a_mesh(tmp_path, axis, error, msg):
-    """A model axis or a data axis that the process group does not have
-    (one process here) raises."""
+@pytest.mark.parametrize("axes,msg", [
+    ({"model": 2}, "mesh.model=2: the port has no model axis"),
+    ({"data": 2}, "mesh.data=2 but the data axis has 1")])
+def test_trainer_refuses_a_mesh(tmp_path, axes, msg):
+    """A model axis over 1 (the port has none) or a data axis that the
+    process group does not have (one process here) raises."""
     cfg = _cfg(max_iter=1)
-    cfg = cfg.replace(mesh=cfg.mesh.replace(**{axis: 2}))
-    with pytest.raises(error, match=msg):
+    cfg = cfg.replace(mesh=cfg.mesh.replace(**axes))
+    with pytest.raises(ValueError, match=msg):
         build_synthetic_trainer(cfg, str(tmp_path), n_pairs=16, device="cpu")
+
+
+def test_train_entry_point_refuses_a_model_axis(tmp_path):
+    """`python -m ekaid_torch.train.train ... mesh.model 2` raises before
+    any step or file of the run."""
+    with pytest.raises(ValueError, match="mesh.model=2"):
+        train_mod.main(["--synthetic", "--device", "cpu", "--cfg",
+                        str(ROOT / "configs" / "smoke.yaml"), "--workdir",
+                        str(tmp_path / "run"), "mesh.model", "2"])
+    assert not (tmp_path / "run").exists()
