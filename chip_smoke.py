@@ -222,7 +222,12 @@ Phases, each fatal on failure:
      ms, peak memory, losses finite), one eval batch, then the
      `InferenceEngine`: encode + K1 decode of B=M0_B timed (pairs/s) and
      M0_ANSWERS batch-1 answers (median ms); K1's launches must equal
-     the decodes (15a and 15b's live ones); gates outside the count: the
+     the decodes (15a and 15b's live ones); the train steps launch no K5
+     (gradients: the plain chain), and an encode of the inference-cast
+     model, its graphs dropped, launches K5 104 times a trunk call when
+     eager, records as many into its graph when captured, and its
+     eager run and a replay, traced, show K5 and no
+     RowwiseMomentsCUDAKernel (`mode0_k5`); gates outside the count: the
      bf16 step-0 tokens equal the plain decode's, and at f32 with TF32
      off the card's encoder outputs on M0_GATE_ROWS rows within
      M0_ENC_RTOL of the largest magnitude of the CPU's, and K1 on them
@@ -278,6 +283,24 @@ Phases, each fatal on failure:
      equal up to a near-tie under BF16_STEP0_GAP, the token share and
      gaps recorded. K1's launches here (every rank's eval decodes) add
      to its `kernels` entry.
+ 17. the trunk's GroupNorm, K5 (`csrc/group_norm.cu`), at mode0's
+     shapes (every GroupNorm of the R101 over M0_SIZE^2 images, batch
+     M0_B, bf16 inference-cast affine): at each distinct shape and
+     epilogue, the kernel against the plain chain (`group_norm_plain`
+     and the next convolution's copy to channels-last), at least
+     GN_EQUAL_SHARE of the outputs bit-equal and none further than one
+     bf16 ulp of the normalised value (plus one of the sum after the
+     residual add; an ulp taken at no less than 2^-8); then device
+     times by CUDA events, warm, each from a CUDA graph of calls back to
+     back (`graph_ms`, so the host's launch is out of them): each
+     shape's launch and its plain chain, the bound from its bytes (the
+     map read and written once, the residual read once, at 3.35 TB/s),
+     the sums over a batch (two trunks of 104), and one trunk's 104
+     launches in order; and the wrapper's host time a call. K5's
+     `kernels` entry counts its launches by path: those of phases 1-14
+     (the extraction backbones and the detectors' evals, all eager, by
+     the wrapper's count) and 15a's traced mode0 encodes; this phase's
+     checks and timings are not in it.
 Prints one `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}, after a `record:` line with every number
 as JSON. Without a CUDA device, or outside the repository, it exits
@@ -384,6 +407,8 @@ M0_POOL = 256                      # synthetic images (feature_idx < 256)
 M0_GATE_ROWS = 4                   # 15a: f32 card vs CPU
 M0_ENC_RTOL = 1e-3                 # of each output's largest magnitude
 M0_DECODE_REPS = 5
+GN_EQUAL_SHARE = 0.99              # 17: K5's outputs bit-equal to plain
+GN_REPS = (50, 10)                 # 17: timed calls, kernel and plain
 M0_ANSWERS = 10
 M0_TRAIN_STEPS = 4
 COALESCE = 16                      # 15b: the exported coalescing batch
@@ -420,6 +445,23 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one call of `fn` (CUDA work only, capturable): a
+    CUDA graph of `reps` calls back to back, replayed and timed by CUDA
+    events, over `reps`. The host's launch of each call is out of it."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, 5) / reps
 
 
 def cold_l2_ms(fn, reps: int) -> float:
@@ -4203,6 +4245,80 @@ def run_startup(mode: str, art_dir, build_dir, workdir, cfg_json,
     return r
 
 
+def mode0_k5(model, b) -> dict:
+    """15a's K5 check on the inference-cast mode0 `model` and the batch
+    tensors `b`, its graphs dropped first: the first encode runs eagerly
+    and launches K5 once per GroupNorm of each trunk call (two an
+    encode; counted by the wrapper, and by `ekaid.gn.kernel` once a
+    trunk call); the second is captured, and each of those launches is
+    recorded into the graph; the third replays it (the wrapper counts
+    nothing). The first and the third are traced: K5 at work and no
+    RowwiseMomentsCUDAKernel. Returns the K5 launches on each path: the
+    eager encode's and a replay's. (The trace's own count of K5 is
+    recorded, not gated: the profiler may drop a few of an encode's
+    ~2,000 kernel records.)"""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ekaid_torch.models.detector import backbone
+    from ekaid_torch.models.ekaid import EncodeGraphs
+    from ekaid_torch.ops.group_norm import group_norm_kernel as k5
+    from ekaid_torch.utils import observability as obs
+    norms = sum(isinstance(m, backbone.GroupNorm)
+                for m in model.change_detector.extractor.trunk.modules())
+
+    def traced(fn):
+        obs.reset_recorded()
+        start = k5.launches
+        torch.cuda.synchronize()
+        with torch.no_grad(), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        counts = obs.recorded()["counts"]
+        obs.reset_recorded()
+        return {"wrapper": k5.launches - start,
+                "moments": sum("RowwiseMoments" in n for n in names),
+                **{k: counts.get(f"ekaid.{k.replace('_', '.')}", 0)
+                   for k in ("gn_kernel", "gn_plain", "encode_eager",
+                             "encode_graph")},
+                "traced": sum("group_norm_kernel" in n for n in names)}
+
+    model.graphs = EncodeGraphs()
+    eager = traced(lambda: model.encode(b))
+    recorded = []
+
+    def counting(*args, **kw):       # the trunk's calls of K5, captured
+        recorded.append(torch.cuda.is_current_stream_capturing())
+        return k5(*args, **kw)
+
+    backbone.group_norm_kernel = counting
+    try:
+        model.encode(b)
+    finally:
+        backbone.group_norm_kernel = k5
+    graphed = traced(lambda: model.encode(b))
+    want_e = {"wrapper": 2 * norms, "moments": 0, "gn_kernel": 2,
+              "gn_plain": 0, "encode_eager": 1, "encode_graph": 0}
+    want_g = {"wrapper": 0, "moments": 0, "gn_kernel": 0, "gn_plain": 0,
+              "encode_eager": 0, "encode_graph": 1}
+    log(f"      K5 on the main path (R101, {norms} GroupNorms a trunk, two "
+        f"trunks an encode): eager encode {eager}; captured "
+        f"{sum(recorded)} of {len(recorded)} calls; replay {graphed}")
+    if norms != 104 or recorded != [True] * (2 * norms) or any(
+            {k: d[k] for k in want} != want or not d["traced"]
+            for d, want in ((eager, want_e), (graphed, want_g))):
+        raise AssertionError(f"15a: K5 on the main path: {norms} norms a "
+                             f"trunk, eager {eager} (want {want_e}), "
+                             f"captured {recorded}, replay {graphed} "
+                             f"(want {want_g})")
+    return {"mode0_eager_encode": eager["wrapper"],
+            "mode0_graph_replay": len(recorded),
+            "traced": [eager["traced"], graphed["traced"]]}
+
+
 def mode0_phase(rec: dict, cfg, keep: dict, device: str = "cuda") -> int:
     """15a and 15b. Returns K1's launches on the path."""
     import shutil
@@ -4210,6 +4326,7 @@ def mode0_phase(rec: dict, cfg, keep: dict, device: str = "cuda") -> int:
     from ekaid_torch.models import decoder
     from ekaid_torch.models import greedy_decode as gd
     from ekaid_torch.models.ekaid import EkaidModel
+    from ekaid_torch.ops.group_norm import group_norm_kernel as k5
     from ekaid_torch.serving.artifact import save_artifact
     from ekaid_torch.serving.engine import InferenceEngine
     from ekaid_torch.serving.server import CoalescingEngine
@@ -4227,6 +4344,7 @@ def mode0_phase(rec: dict, cfg, keep: dict, device: str = "cuda") -> int:
     t_phase = time.perf_counter()
     k1 = decoder.greedy_decode
     k1.launches = 0
+    k5.launches = 0
     decodes = 0
     tr = mode0_trainer(cfg0, str(work / "trainer"), device, M0_SIZE)
     if cuda:
@@ -4234,6 +4352,9 @@ def mode0_phase(rec: dict, cfg, keep: dict, device: str = "cuda") -> int:
     tr.step_seconds = []
     tr.train()
     sync()
+    if k5.launches:                  # gradients: the plain chain
+        raise AssertionError(f"15a: the train steps launched K5 "
+                             f"{k5.launches} times")
     from ekaid_torch.utils.logging import read_metrics
     losses = [m["train/total_loss"] for m in read_metrics(tr.workdir)
               if "train/total_loss" in m]
@@ -4317,6 +4438,8 @@ def mode0_phase(rec: dict, cfg, keep: dict, device: str = "cuda") -> int:
     if launches != decodes:
         raise AssertionError(f"15: K1 launched {launches} times for "
                              f"{decodes} decodes")
+    if cuda:
+        r["k5_launches"] = mode0_k5(m16, dev)
 
     # gates, outside the count: bf16 step-0 tokens, then f32 card vs CPU
     if not torch.equal(plain_step0(m16, dev), out["seq"][:, 0]):
@@ -4942,6 +5065,128 @@ def mesh_phase(rec: dict, cfg, device: str = "cuda") -> int:
     return launches
 
 
+def trunk_gn_shapes(size: int, depths) -> list:
+    """(H, W, C, epilogue) of each GroupNorm of a `ResNet` of `depths`
+    over size^2 images, in the order it runs them (epilogue 'relu',
+    'none' or 'residual'): read by hooks from the real trunk, run on the
+    meta device."""
+    import torch
+    from ekaid_torch.models.detector.backbone import GroupNorm, ResNet
+    from ekaid_torch.utils.dtypes import F32
+    seen = []
+
+    def hook(mod, args, kw):
+        x = args[0]
+        epi = ("residual" if kw.get("residual") is not None
+               else "relu" if kw.get("relu") else "none")
+        seen.append((*x.shape[2:], x.shape[1], epi))
+
+    with torch.device("meta"):
+        m = ResNet(3, depths=depths, policy=F32)
+    for mod in m.modules():
+        if isinstance(mod, GroupNorm):
+            mod.register_forward_pre_hook(hook, with_kwargs=True)
+    with torch.no_grad():
+        m(torch.zeros(1, 3, size, size, device="meta"))
+    return seen
+
+
+def gn_phase(rec: dict) -> None:
+    """17. K5 at mode0's GroupNorm shapes: checks and times."""
+    import torch
+    from ekaid_torch.models.change_detector import R101
+    from ekaid_torch.models.detector.backbone import GN_EPS, GN_GROUPS
+    from ekaid_torch.ops import group_norm as gn
+    r = rec["group_norm"] = {"shapes": []}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    norms = trunk_gn_shapes(M0_SIZE, R101)
+    kinds = {"relu": (True, False), "none": (False, False),
+             "residual": (True, True)}
+    cases = {}
+
+    def ulp(v):
+        # at no less than 2^-8: the statistics agree to f32 rounding,
+        # which moves an output cancelled to ~1e-6 past its own ulp
+        e = torch.frexp(v.float().abs().clamp_min(2.0 ** -8))[1]
+        return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+    for key in dict.fromkeys(norms):
+        h, w, c, epi = key
+        x = (3 * torch.randn(M0_B, c, h, w, generator=gen, device=dev)
+             + torch.randn(1, c, 1, 1, generator=gen, device=dev))
+        res = torch.randn(M0_B, c, h, w, generator=gen, device=dev)
+        cl = torch.channels_last
+        x = x.to(torch.bfloat16).contiguous(memory_format=cl)
+        res = res.to(torch.bfloat16).contiguous(memory_format=cl)
+        s = (1 + 0.3 * torch.randn(c, generator=gen, device=dev)).bfloat16()
+        b = (0.3 * torch.randn(c, generator=gen, device=dev)).bfloat16()
+        relu, with_res = kinds[epi]
+        args = (x, s, b, GN_GROUPS, GN_EPS)
+        rr = res if with_res else None
+        cases[key] = (args, relu, rr)
+        got = gn.group_norm_kernel(*args, relu, rr)
+        want = gn.group_norm_plain(*args, torch.bfloat16, relu, rr)
+        y = gn.group_norm_plain(*args, torch.bfloat16)
+        tol = ulp(y) + (ulp(want) if with_res else 0)
+        gap = (got.float() - want.float()).abs()
+        equal = (got == want).float().mean().item()
+        what = f"17: {h}x{w}x{c} {epi}"
+        if not (gap <= tol).all():
+            raise AssertionError(f"{what}: K5 {(gap - tol).max().item()} "
+                                 "past one bf16 ulp of the plain chain")
+        if equal < GN_EQUAL_SHARE:
+            raise AssertionError(f"{what}: {equal:.6f} of K5's outputs "
+                                 "bit-equal to the plain chain")
+        kernel_ms = graph_ms(lambda: gn.group_norm_kernel(*args, relu, rr),
+                             GN_REPS[0])
+        plain_ms = graph_ms(lambda: gn.group_norm_plain(
+            *args, torch.bfloat16, relu, rr).contiguous(memory_format=cl),
+            GN_REPS[1])
+        nbytes = gn.norm_bytes(M0_B, h * w, c, with_res)
+        pl = gn.plan(M0_B, h * w, c, GN_GROUPS, gn._sms(0))
+        r["shapes"].append({
+            "shape": [h, w, c], "epilogue": epi, "per_trunk":
+            norms.count(key), "equal_share": equal,
+            "kernel_us": kernel_ms * 1e3, "plain_us": plain_ms * 1e3,
+            "bound_us": nbytes / HBM_BYTES_PER_S * 1e6, "bytes": nbytes,
+            "plan": [pl.blocks, pl.split, pl.threads, int(pl.cached)]})
+    shapes = r["shapes"]
+    for k in ("kernel_us", "plain_us", "bound_us"):
+        r[k.replace("_us", "_ms_batch")] = 2 * sum(
+            e[k] * e["per_trunk"] for e in shapes) / 1e3
+    def trunk():                       # one trunk's launches, in order
+        for key in norms:
+            args, relu, rr = cases[key]
+            gn.group_norm_kernel(*args, relu, rr)
+
+    r["graph_trunk_ms"] = graph_ms(trunk, 1)
+    r["graph_ms_batch"] = 2 * r["graph_trunk_ms"]
+    # the wrapper's host time a call (checks, plan, output, launch)
+    args, relu, rr = cases[norms[-1]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        gn.group_norm_kernel(*args, relu, rr)
+    r["host_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    log(f"[17] K5 at mode0's GroupNorm shapes (B={M0_B}, {M0_SIZE}^2, "
+        f"bf16), us a launch: kernel / plain chain / bound from bytes "
+        f"(blocks, split, threads, cached); every shape within one ulp, "
+        f"bit-equal share >= {GN_EQUAL_SHARE}")
+    for e in shapes:
+        log(f"    {'x'.join(map(str, e['shape'])):>12} {e['epilogue']:>8} "
+            f"x{e['per_trunk']:<2}: {e['kernel_us']:8.2f} / "
+            f"{e['plain_us']:8.2f} / {e['bound_us']:7.2f} {e['plan']} "
+            f"equal {e['equal_share']:.5f}")
+    log(f"    the wrapper's host time a call {r['host_us']:.1f} us")
+    log(f"    a batch (2 trunks x {len(norms)}): kernel "
+        f"{r['kernel_ms_batch']:.3f} ms (graph of one trunk's launches "
+        f"{r['graph_trunk_ms']:.3f} ms, x2 {r['graph_ms_batch']:.3f}), "
+        f"plain chain {r['plain_ms_batch']:.3f} ms, bound "
+        f"{r['bound_ms_batch']:.3f} ms")
+
+
 def main() -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -5170,6 +5415,8 @@ def main() -> dict:
     t15 = time.perf_counter()
     del engine, m16
     torch.cuda.empty_cache()
+    from ekaid_torch.ops.group_norm import group_norm_kernel
+    k5_earlier = group_norm_kernel.launches      # phases 1-14, all eager
     kernels_line[0]["launches"] += mode0_phase(rec, cfg, keep)
     torch.cuda.empty_cache()
     k1, k2 = dp_phase(rec, cfg)
@@ -5183,6 +5430,21 @@ def main() -> dict:
     # DDP train step and the data-sharded eval through K1 on each rank --
     torch.cuda.empty_cache()
     kernels_line[0]["launches"] += mesh_phase(rec, cfg)
+
+    # ---- 17. the trunk's GroupNorm (K5) at mode0's shapes ------------------
+    torch.cuda.empty_cache()
+    gn_phase(rec)
+    g = rec["group_norm"]
+    k5_paths = {"earlier_phases_eager": k5_earlier,
+                **{k: v for k, v in rec["mode0"]["k5_launches"].items()
+                   if k != "traced"}}
+    kernels_line.append({
+        "name": "group_norm", "route": "cuda",
+        "source": "ekaid_torch/csrc/group_norm.cu", "replaces": None,
+        "launches": sum(k5_paths.values()), "launches_by_path": k5_paths,
+        "ms": g["kernel_ms_batch"], "plain_ms": g["plain_ms_batch"],
+        "bound_ms": g["bound_ms_batch"], "bound_by": "bytes",
+        "library_ms": None})
     kline = {"kernels": kernels_line}
     log("record: " + json.dumps(rec))
     print(json.dumps(kline))

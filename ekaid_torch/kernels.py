@@ -32,7 +32,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build" / "ekaid_torch"
 SOURCES = {"greedy_decode": CSRC / "greedy_decode.cu",
            "roi_align": CSRC / "roi_align.cu",
-           "nms": CSRC / "nms.cu"}
+           "nms": CSRC / "nms.cu",
+           "group_norm": CSRC / "group_norm.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -49,6 +50,11 @@ ENTRY = {
     # slots, full mask, stream
     "nms": ("ekaid_nms", [_P, _P, ctypes.c_float, _P, _P, _P, _I, _I, _I,
                           _I, _P]),
+    # x, residual (or null), y, gamma, beta, affine bf16, epilogue, N, P,
+    # C, groups, blocks, split, threads, cached, eps, stream
+    "group_norm": ("ekaid_group_norm", [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _I, _I, _I, _I, _I, _I,
+                                        ctypes.c_float, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -107,13 +113,18 @@ def build(name: str) -> Path:
     return lib
 
 
+def _build_pool(names) -> Dict[str, Path]:
+    """Build the kernels `names`, one nvcc per source, all started
+    together."""
+    with ThreadPoolExecutor(len(names)) as pool:
+        futs = {name: pool.submit(build, name) for name in names}
+        return {name: fut.result() for name, fut in futs.items()}
+
+
 def build_all() -> float:
-    """Build every kernel, one nvcc per source, all started together;
-    returns the wall seconds."""
+    """Build every kernel in one pool; returns the wall seconds."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        for fut in [pool.submit(build, name) for name in SOURCES]:
-            fut.result()
+    _build_pool(list(SOURCES))
     return time.perf_counter() - t0
 
 
@@ -133,6 +144,16 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _libs:
         _libs[name] = _declare(ctypes.CDLL(str(build(name))), name)
     return _libs[name]
+
+
+def load_all(names) -> None:
+    """`load` each of the kernels `names`, building those not loaded yet
+    in one pool, so that a process that launches several waits for
+    nvcc once."""
+    todo = [name for name in dict.fromkeys(names) if name not in _libs]
+    if todo:
+        for name, path in _build_pool(todo).items():
+            _libs[name] = _declare(ctypes.CDLL(str(path)), name)
 
 
 def load_prebuilt(name: str, path) -> ctypes.CDLL:

@@ -9,8 +9,15 @@ Layout: the public functions take and return NHWC tensors ([B, H, W, C],
 the reference's layout). Inside, a tensor is the NCHW view of NHWC
 memory (`permute(0, 3, 1, 2)`, which is torch's channels-last format),
 and every convolution runs channels-last, so the pyramid comes out as
-contiguous NHWC. On CUDA, `group_norm` returns the plain NCHW layout;
-the next convolution copies its input back to channels-last.
+contiguous NHWC. A GroupNorm takes its ReLU and residual add as
+arguments (`ops/group_norm.py::epilogue`). Where `kernel_applies` (a
+bf16 channels-last CUDA map, no gradient required) it runs the K5
+kernel, which writes channels-last; elsewhere the plain chain, whose
+`group_norm` returns the NCHW layout, so the next convolution copies
+its input back to channels-last. `ResNet.forward` counts the path its
+stem's GroupNorm took (`ekaid.gn.kernel` / `ekaid.gn.plain`, one a
+call); the trunk's other GroupNorms take the same one, as the rule
+reads what a trunk's maps share: device, dtype, layout, gradients.
 
 Parameters keep the reference's names. Conv kernels are OIHW (the
 weight bridge transposes flax's HWIO); norms carry `scale`/`bias`.
@@ -24,7 +31,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ekaid_torch.ops.group_norm import (epilogue, group_norm_kernel,
+                                       group_norm_plain, kernel_applies)
 from ekaid_torch.utils.dtypes import F32, Policy
+from ekaid_torch.utils.observability import count
 
 GN_GROUPS = 32
 GN_EPS = 1e-6              # flax nn.GroupNorm's epsilon (torch's is 1e-5)
@@ -72,7 +82,8 @@ class Conv(nn.Module):
 
 class GroupNorm(nn.Module):
     """flax `nn.GroupNorm(32)`: statistics and the affine in f32, eps
-    1e-6, the result rounded once to the compute dtype."""
+    1e-6, the result rounded once to the compute dtype; then the
+    `epilogue` asked for."""
 
     def __init__(self, features: int, policy: Policy = F32):
         super().__init__()
@@ -84,15 +95,28 @@ class GroupNorm(nn.Module):
         self.scale.fill_(1.0)
         self.bias.zero_()
 
-    def forward(self, x):
-        y = F.group_norm(x.float(), GN_GROUPS, self.scale.float(),
-                         self.bias.float(), eps=GN_EPS)
-        return self.policy.cast_compute(y)
+    @property
+    def takes_kernel(self) -> bool:
+        """Whether its calls may run the K5 kernel: at a bf16 compute
+        dtype (each call on a CUDA map where `kernel_applies`)."""
+        return self.policy.compute_dtype == torch.bfloat16
+
+    def uses_kernel(self, x, residual=None) -> bool:
+        """Whether a call on x runs the K5 kernel."""
+        return self.takes_kernel and \
+            kernel_applies(x, self.scale, self.bias, GN_GROUPS, residual)
+
+    def forward(self, x, relu: bool = False, residual=None):
+        if self.uses_kernel(x, residual):
+            return group_norm_kernel(x, self.scale, self.bias, GN_GROUPS,
+                                     GN_EPS, relu, residual)
+        return group_norm_plain(x, self.scale, self.bias, GN_GROUPS, GN_EPS,
+                                self.policy.compute_dtype, relu, residual)
 
 
 class FrozenAffine(nn.Module):
     """FrozenBatchNorm equivalent: y = x * scale + bias, in the compute
-    dtype."""
+    dtype; then the `epilogue` asked for."""
 
     def __init__(self, features: int, policy: Policy = F32):
         super().__init__()
@@ -104,9 +128,10 @@ class FrozenAffine(nn.Module):
         self.scale.fill_(1.0)
         self.bias.zero_()
 
-    def forward(self, x):
+    def forward(self, x, relu: bool = False, residual=None):
         cc = self.policy.cast_compute
-        return x * cc(self.scale)[:, None, None] + cc(self.bias)[:, None, None]
+        y = x * cc(self.scale)[:, None, None] + cc(self.bias)[:, None, None]
+        return epilogue(y, relu, residual)
 
 
 def make_norm(kind: str, features: int, policy: Policy) -> nn.Module:
@@ -140,10 +165,9 @@ class Bottleneck(nn.Module):
         shortcut = x
         if self.conv_sc is not None:
             shortcut = self.norm_sc(self.conv_sc(x))
-        y = torch.relu(self.norm1(self.conv1(x)))
-        y = torch.relu(self.norm2(self.conv2(y)))
-        y = self.norm3(self.conv3(y))
-        return torch.relu(y + shortcut)
+        y = self.norm1(self.conv1(x), relu=True)
+        y = self.norm2(self.conv2(y), relu=True)
+        return self.norm3(self.conv3(y), relu=True, residual=shortcut)
 
 
 class ResNet(nn.Module):
@@ -177,8 +201,12 @@ class ResNet(nn.Module):
             self.stages.append(names)
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
-        x = self.policy.cast_compute(x)
-        x = torch.relu(self.stem_norm(self.stem_conv(x)))
+        x = self.stem_conv(self.policy.cast_compute(x))
+        if isinstance(self.stem_norm, GroupNorm):
+            kernel = self.stem_norm.uses_kernel(x)
+            count("ekaid.gn.kernel", int(kernel))
+            count("ekaid.gn.plain", int(not kernel))
+        x = self.stem_norm(x, relu=True)
         x = F.max_pool2d(x, 3, 2, padding=1)
         feats = {}
         for stage, names in enumerate(self.stages):

@@ -39,7 +39,8 @@ import torch
 from torch import nn
 
 from ekaid_torch.models.change_detector import ChangeDetector
-from ekaid_torch.models.decoder import DynamicSpeaker
+from ekaid_torch.models.decoder import DynamicSpeaker, greedy_path
+from ekaid_torch.models.detector.backbone import GroupNorm
 from ekaid_torch.models.layers import init_params
 from ekaid_torch.ops.graph import broadcast_adjacency
 from ekaid_torch.parallel.mesh import gather
@@ -172,6 +173,8 @@ class EkaidModel(nn.Module):
         #: the `parallel.mesh.Mesh` this model is placed on, or None
         self.mesh = mesh
         self.graphs = EncodeGraphs()
+        #: the device whose `decode_kernels` are loaded
+        self._kernels_on: Optional[torch.device] = None
         self.to(dev)
         self.eval()
 
@@ -196,6 +199,21 @@ class EkaidModel(nn.Module):
                 broadcast_adjacency(b["q_adj"], c.spa_label_num, n, dt),
                 broadcast_adjacency(b["d_sem_adj"], c.sem_label_num, n, dt),
                 broadcast_adjacency(b["q_sem_adj"], c.sem_label_num, n, dt))
+
+    def decode_kernels(self) -> Tuple[str, ...]:
+        """The kernels a greedy decode launches on this model's device:
+        on CUDA, K5 where a GroupNorm of the trunk may take it
+        (`GroupNorm.takes_kernel`) and K1 where `greedy_path` says
+        'kernel'."""
+        if self.device.type != "cuda":
+            return ()
+        names = []
+        if any(isinstance(m, GroupNorm) and m.takes_kernel
+               for m in self.modules()):
+            names.append("group_norm")
+        if greedy_path(self.cfg.speaker, self.device) == "kernel":
+            names.append("greedy_decode")
+        return tuple(names)
 
     def graphs_apply(self, gen=None) -> bool:
         """Whether an encode without gradients replays a CUDA graph: on
@@ -260,6 +278,11 @@ class EkaidModel(nn.Module):
         gen). On a mesh with a data axis over 1, a greedy decode runs on
         this rank's block of rows and returns the whole batch's
         (`_rows_of_this_rank`): every rank must call it together."""
+        if self._kernels_on != self.device:
+            # the first decode on a device builds all it launches at once
+            from ekaid_torch import kernels
+            kernels.load_all(self.decode_kernels())
+            self._kernels_on = self.device
         mesh = self.mesh
         split = sample_max and mesh is not None and mesh.data > 1
         b = self.tensors(batch)

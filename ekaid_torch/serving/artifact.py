@@ -19,14 +19,17 @@ Layout (a directory):
                          source hash and file name
     weights.pt           the inference-cast parameters (a state dict)
     lib<name>-<key>.so   on 'cuda', the built library of each kernel
-                         the greedy decode launches (K1)
+                         the greedy decode launches (K1; in mode0 at
+                         bf16 also the trunk's GroupNorm, K5)
 
 `load_artifact` raises, before any decode, when the platform, the torch
 version or the device's compute capability differs from the export's,
 or when a carried kernel's source hash differs from the tree's
 `csrc/` (`kernels.source_hash`); it then loads each carried library
 with `kernels.load_prebuilt`, which never runs nvcc and fails loudly.
-The engines raise for a batch size that was not exported
+`Artifact.load_into` raises when the model's decode launches a kernel
+the artifact does not carry (an export older than the kernel). The
+engines raise for a batch size that was not exported
 (`Artifact.fn_for_batch`) and for a live sample whose shapes differ
 from the exported ones (`Artifact.check_sample`). As in the reference,
 an artifact's engine feeds the full-width inputs the export recorded:
@@ -45,7 +48,6 @@ import numpy as np
 import torch
 
 from ekaid_torch import kernels
-from ekaid_torch.models.decoder import greedy_path
 from ekaid_torch.utils.device import resolve_device
 
 _META = "meta.json"
@@ -56,14 +58,6 @@ def greedy(model, batch):
     """The decode an engine serves: `EkaidModel.decode`, greedy (K1 on
     the card)."""
     return model.decode(batch)
-
-
-def _decode_kernels(model) -> tuple:
-    """The kernels a greedy decode of `model` launches."""
-    if model.device.type == "cuda" and \
-            greedy_path(model.cfg.speaker, model.device) == "kernel":
-        return ("greedy_decode",)
-    return ()
 
 
 def save_artifact(path: str, model, sample: Dict[str, np.ndarray],
@@ -81,7 +75,7 @@ def save_artifact(path: str, model, sample: Dict[str, np.ndarray],
     out.mkdir(parents=True, exist_ok=True)
     dev = model.device
     carried = {}
-    for name in _decode_kernels(model):
+    for name in model.decode_kernels():
         lib = kernels.build(name)
         shutil.copy2(lib, out / lib.name)
         carried[name] = {"source_hash": kernels.source_hash(name),
@@ -137,7 +131,15 @@ class Artifact:
 
     def load_into(self, model) -> None:
         """Copy the weights into `model` (cast for inference first, so
-        each copy keeps its dtype)."""
+        each copy keeps its dtype). Raises, before any decode, when the
+        model's decode launches a kernel the artifact does not carry."""
+        missing = [name for name in model.decode_kernels()
+                   if name not in self.meta["kernels"]]
+        if missing:
+            raise RuntimeError(
+                f"artifact carries the kernels {sorted(self.meta['kernels'])}"
+                f" but this model's decode launches {missing} too — "
+                "re-export from this tree")
         model.load_state_dict(self.weights)
 
 
