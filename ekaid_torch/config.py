@@ -5,6 +5,12 @@ names and defaults are the same, so `configs/smoke.yaml` and
 `configs/mimic.yaml` load unchanged. Unknown YAML keys raise; values are
 coerced as the reference does (literal_eval, then type coercion).
 
+`decoder` picks the answer decoder: 'speaker' (the default), the
+`DynamicSpeaker` LSTM, or 'lm', the DeepSeek-V2 language model of the
+`lm` section (`models/lm_decoder.py`) behind a projector. The `lm`
+section takes the keys of the model's published `config.json`, and
+refuses settings the port does not implement.
+
 The mesh's `data` is the size of the data-parallel group (-1: the
 group's size; `parallel/mesh.py`), and its `model` must be 1: the port
 has no tensor-parallel axis, since the model fits one device. Of the
@@ -238,6 +244,79 @@ class DetectorConfig:
 
 
 @_frozen
+class RopeScalingConfig:
+    """YaRN RoPE scaling (the published `rope_scaling` group)."""
+    type: str = "yarn"
+    factor: float = 40.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 0.707
+    mscale_all_dim: float = 0.707
+
+    def __post_init__(self):
+        if self.type != "yarn":
+            raise ValueError(f"lm.rope_scaling.type {self.type!r}: the port "
+                             "implements 'yarn'")
+
+
+@_frozen
+class LMConfig:
+    """The answer decoder's language model, under the names of its
+    published config.json; the defaults are DeepSeek-V2-Lite's
+    (huggingface.co/deepseek-ai/DeepSeek-V2-Lite). `seq_aux` and
+    `max_position_embeddings` are kept as published and change nothing
+    at inference."""
+    model_type: str = "deepseek_v2"
+    vocab_size: int = 102400
+    hidden_size: int = 2048
+    intermediate_size: int = 10944
+    moe_intermediate_size: int = 1408
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    num_key_value_heads: int = 16
+    n_shared_experts: int = 2
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    routed_scaling_factor: float = 1.0
+    scoring_func: str = "softmax"
+    topk_method: str = "greedy"
+    n_group: int = 1
+    topk_group: int = 1
+    norm_topk_prob: bool = False
+    seq_aux: bool = True
+    first_k_dense_replace: int = 1
+    moe_layer_freq: int = 1
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    hidden_act: str = "silu"
+    attention_bias: bool = False
+    tie_word_embeddings: bool = False
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    rope_scaling: RopeScalingConfig = field(
+        default_factory=RopeScalingConfig)
+    max_position_embeddings: int = 163840
+    bos_token_id: int = 100000
+    eos_token_id: int = 100001
+
+    def __post_init__(self):
+        want = {"model_type": "deepseek_v2", "q_lora_rank": None,
+                "scoring_func": "softmax", "topk_method": "greedy",
+                "n_group": 1, "topk_group": 1, "moe_layer_freq": 1,
+                "hidden_act": "silu", "attention_bias": False,
+                "tie_word_embeddings": False,
+                "num_key_value_heads": self.num_attention_heads}
+        for key, value in want.items():
+            if getattr(self, key) != value:
+                raise ValueError(f"lm.{key} {getattr(self, key)!r}: the port "
+                                 f"implements {value!r}")
+
+
+@_frozen
 class Config:
     exp_dir: str = "./experiments"
     exp_name: str = ""
@@ -251,6 +330,12 @@ class Config:
     mesh: MeshConfig = field(default_factory=MeshConfig)
     dtypes: DtypeConfig = field(default_factory=DtypeConfig)
     detector: DetectorConfig = field(default_factory=DetectorConfig)
+    decoder: str = "speaker"
+    lm: LMConfig = field(default_factory=LMConfig)
+
+    def __post_init__(self):
+        if self.decoder not in ("speaker", "lm"):
+            raise ValueError(f"decoder {self.decoder!r}: 'speaker' or 'lm'")
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

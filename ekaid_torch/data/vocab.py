@@ -123,6 +123,26 @@ def pos_tag(tokens: List[str]) -> List[int]:
         return pos_tag_lite(tokens)
 
 
+class AnswerIds(Vocabulary):
+    """The words of an LM decoder's answer ids: the ids are the dataset
+    vocabulary's where it has them (id i is its word i), and 'w<i>' for
+    the LM's other ids. An answer ends at its first negative id (the
+    decoder's END); 0 is a token of the LM, not an end."""
+
+    def __init__(self, vocab: Vocabulary, size: int):
+        super().__init__(vocab.word_to_idx)
+        self.size = size
+
+    def decode(self, ids) -> str:
+        words = []
+        for i in ids:
+            i = int(i)
+            if i < 0:
+                break
+            words.append(self.idx_to_word.get(i, f"w{i}"))
+        return " ".join(words)
+
+
 def identity_vocab(vocab_size: int) -> Vocabulary:
     """Synthetic vocab: token i <-> 'w<i>' (plus '<start>' at 1)."""
     words = {"<start>": 1}

@@ -14,6 +14,10 @@
 6. per-node sigmoid attention pooling -> feat_bef / feat_aft and the
    pooled difference feat_diff, plus the auxiliary 6-way head `pred`.
 
+With `return_nodes` (the LM decoder's encoder, `models/lm_decoder.py`)
+the outputs also hold each image's nodes after step 3, `nodes_bef` and
+`nodes_aft` [B, N, att_dim]; without it, the six outputs above alone.
+
 `branch_mix='sequential'` runs the three encoders as cumulative
 residuals (the reference model as executed); 'parallel' mixes three
 independent branches with coef_sem / coef_spa. `pair_batch` picks how
@@ -143,7 +147,8 @@ class PixelEncoder(nn.Module):
 class ChangeDetector(nn.Module):
     def __init__(self, cfg, feature_dim: int, speaker_embed_dim: int,
                  ntoken: int, graph: str = "all", setting: str = "mode2",
-                 question_att: str = "fixed", policy: Policy = F32):
+                 question_att: str = "fixed", policy: Policy = F32,
+                 return_nodes: bool = False):
         super().__init__()
         if setting not in ("mode2", "mode0"):
             raise ValueError(f"unknown setting {setting!r}")
@@ -153,6 +158,7 @@ class ChangeDetector(nn.Module):
         self.graph = graph
         self.setting = setting
         self.policy = policy
+        self.return_nodes = return_nodes
         A = cfg.att_dim
         if setting == "mode0":
             # img runs on the extractor's att_dim-wide cells
@@ -287,9 +293,12 @@ class ChangeDetector(nn.Module):
         attended_1 = (input_bef * cast(att_bef)).sum(dim=1)
         attended_2 = (input_aft * cast(att_aft)).sum(dim=1)
         input_attended = attended_2 - attended_1
-        return {"pred": self.fc1(input_attended),
-                "att_bef": att_bef.transpose(1, 2),
-                "att_aft": att_aft.transpose(1, 2),
-                "feat_bef": attended_1,
-                "feat_aft": attended_2,
-                "feat_diff": input_attended}
+        out = {"pred": self.fc1(input_attended),
+               "att_bef": att_bef.transpose(1, 2),
+               "att_aft": att_aft.transpose(1, 2),
+               "feat_bef": attended_1,
+               "feat_aft": attended_2,
+               "feat_diff": input_attended}
+        if self.return_nodes:
+            out.update(nodes_bef=input_bef, nodes_aft=input_aft)
+        return out

@@ -1,5 +1,8 @@
 """Full difference-VQA model: ChangeDetector + DynamicSpeaker (counterpart
-of `ekaid_tpu/models/ekaid.py`).
+of `ekaid_tpu/models/ekaid.py`), or, where the config's `decoder` is
+'lm', ChangeDetector + the DeepSeek-V2 answer decoder
+(`models/lm_decoder.py`; eval only: its greedy decode, no training, no
+beam search and no multinomial decode).
 
 A batch is a dict of padded arrays (numpy or torch):
 
@@ -42,10 +45,11 @@ from ekaid_torch.models.change_detector import ChangeDetector
 from ekaid_torch.models.decoder import DynamicSpeaker, greedy_path
 from ekaid_torch.models.detector.backbone import GroupNorm
 from ekaid_torch.models.layers import init_params
+from ekaid_torch.models.lm_decoder import LMDecoder
 from ekaid_torch.ops.graph import broadcast_adjacency
 from ekaid_torch.parallel.mesh import gather
 from ekaid_torch.utils.device import resolve_device
-from ekaid_torch.utils.dtypes import F32, Policy
+from ekaid_torch.utils.dtypes import F32, Policy, lm_param_dtype
 from ekaid_torch.utils.observability import count, span
 
 _INPUTS = ("d_feats", "q_feats", "d_adj", "q_adj", "d_sem_adj", "q_sem_adj",
@@ -154,7 +158,10 @@ class EncodeGraphs:
 class EkaidModel(nn.Module):
     """`device` defaults to CUDA and raises without a card unless the
     caller asks for 'cpu'. Parameters are drawn from `seed`; load trained
-    or reference weights with `ekaid_torch.convert.load_flax_params`."""
+    or reference weights with `ekaid_torch.convert.load_flax_params`.
+    The LM decoder (`lm`, with `speaker` None) is built on the device in
+    its parameters' dtype (`lm_param_dtype`), left unwritten where
+    `seed` is None."""
 
     def __init__(self, cfg, ntoken: int, policy: Policy = F32,
                  device="cuda", seed: Optional[int] = 0, mesh=None):
@@ -162,12 +169,21 @@ class EkaidModel(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         self.policy = policy
+        lm = cfg.decoder == "lm"
         self.change_detector = ChangeDetector(
             cfg.change_detector, feature_dim=cfg.data.feature_dim,
             speaker_embed_dim=cfg.speaker.embed_dim, ntoken=ntoken,
             graph=cfg.train.graph, setting=cfg.train.setting,
-            question_att=cfg.question.att_mode, policy=policy)
-        self.speaker = DynamicSpeaker(cfg.speaker, policy)
+            question_att=cfg.question.att_mode, policy=policy,
+            return_nodes=lm)
+        self.speaker = None if lm else DynamicSpeaker(cfg.speaker, policy)
+        self.lm = None
+        if lm:
+            # no f32 copy of the LM on any device: built on meta, cast,
+            # then given memory on the device
+            with torch.device("meta"):
+                shape = LMDecoder(cfg)
+            self.lm = shape.to(lm_param_dtype(policy)).to_empty(device=dev)
         if seed is not None:
             init_params(self, torch.Generator().manual_seed(seed))
         #: the `parallel.mesh.Mesh` this model is placed on, or None
@@ -180,7 +196,7 @@ class EkaidModel(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.speaker.word_emb.device
+        return self.change_detector.img.kernel.device
 
     def tensors(self, batch, train: bool = False
                 ) -> Dict[str, torch.Tensor]:
@@ -204,14 +220,15 @@ class EkaidModel(nn.Module):
         """The kernels a greedy decode launches on this model's device:
         on CUDA, K5 where a GroupNorm of the trunk may take it
         (`GroupNorm.takes_kernel`) and K1 where `greedy_path` says
-        'kernel'."""
+        'kernel' (never with the LM decoder)."""
         if self.device.type != "cuda":
             return ()
         names = []
         if any(isinstance(m, GroupNorm) and m.takes_kernel
                for m in self.modules()):
             names.append("group_norm")
-        if greedy_path(self.cfg.speaker, self.device) == "kernel":
+        if self.speaker is not None and \
+                greedy_path(self.cfg.speaker, self.device) == "kernel":
             names.append("greedy_decode")
         return tuple(names)
 
@@ -257,6 +274,7 @@ class EkaidModel(nn.Module):
         teacher-forced logprobs [B, T, V], pos_logprobs and
         module_weights [B, T, 3]. gen: dropout draws (None: no dropout);
         ss_gen: scheduled sampling draws (see `teacher_forcing`)."""
+        self._refuse_lm("training")
         b = self.tensors(batch, train=True)
         enc = self._encode(b, gen)
         dec = self.speaker.teacher_forcing(
@@ -277,7 +295,11 @@ class EkaidModel(nn.Module):
         multinomially in the loop, with the draws from gumbel or
         gen). On a mesh with a data axis over 1, a greedy decode runs on
         this rank's block of rows and returns the whole batch's
-        (`_rows_of_this_rank`): every rank must call it together."""
+        (`_rows_of_this_rank`): every rank must call it together.
+        With the LM decoder: seq and logprobs of its greedy decode
+        (`LMDecoder.generate`) beside the encoder's outputs."""
+        if not sample_max:
+            self._refuse_lm("a multinomial decode")
         if self._kernels_on != self.device:
             # the first decode on a device builds all it launches at once
             from ekaid_torch import kernels
@@ -291,14 +313,24 @@ class EkaidModel(nn.Module):
         with span("ekaid.decode.encode"):
             enc = self._encode(b)
         with span("ekaid.decode.sample"):
-            dec = self.speaker.sample(
-                enc["feat_bef"], enc["feat_aft"], enc["feat_diff"],
-                sample_max=sample_max, temperature=temperature,
-                gumbel=gumbel, gen=gen, early_exit=early_exit)
+            if self.lm is not None:
+                dec = self.lm.generate(enc, b["question"],
+                                       early_exit=early_exit)
+            else:
+                dec = self.speaker.sample(
+                    enc["feat_bef"], enc["feat_aft"], enc["feat_diff"],
+                    sample_max=sample_max, temperature=temperature,
+                    gumbel=gumbel, gen=gen, early_exit=early_exit)
         out = {**enc, **dec}
         if split:
             out = {k: gather(v, 0) for k, v in out.items()}
         return out
+
+    def _refuse_lm(self, what: str) -> None:
+        if self.lm is not None:
+            raise NotImplementedError(
+                f"{what} is refused with the LM decoder (decoder 'lm'): "
+                "it runs its greedy eval decode only")
 
     def _rows_of_this_rank(self, b) -> Dict[str, torch.Tensor]:
         """This rank's contiguous block of the batch's rows, as P('data')
@@ -320,6 +352,7 @@ class EkaidModel(nn.Module):
         """Beam-search eval path: the encoder's outputs plus
         `DynamicSpeaker.sample_beam`'s (group_size > 1: diverse
         groups)."""
+        self._refuse_lm("beam search")
         enc = self.encode(batch)
         dec = self.speaker.sample_beam(
             enc["feat_bef"], enc["feat_aft"], enc["feat_diff"],

@@ -63,6 +63,7 @@ class InferenceEngine:
                  image_dir: Optional[str] = None, artifact=None):
         self.trainer = trainer
         self.vocab = trainer.vocab
+        self.answer_vocab = trainer.answer_vocab
         self.ds = trainer.eval_ds
         self.model = trainer.model
         self.rng = random.Random(seed)
@@ -135,9 +136,8 @@ class InferenceEngine:
                        mw: Optional[np.ndarray]) -> dict:
         """Per-token words and the [n, 3] bef/diff/aft module attention,
         trimmed to the generated length."""
-        n = int(np.argmax(seq == 0)) if (seq == 0).any() else len(seq)
-        tokens = [self.vocab.idx_to_word.get(int(i), "<unk>")
-                  for i in seq[:n]]
+        tokens = self.answer_vocab.decode(seq).split()
+        n = len(tokens)
         weights = (np.asarray(mw[:n], np.float64).round(4).tolist()
                    if mw is not None else None)
         return {"tokens": tokens, "module_weights": weights}
@@ -151,13 +151,14 @@ class InferenceEngine:
         with self._decode_lock:
             out = self._decode1(self.model, batch)
         seq = out["seq"][0].cpu().numpy()    # waits for the device
-        res = {"answer": self.vocab.decode(seq), "index": idx,
+        res = {"answer": self.answer_vocab.decode(seq), "index": idx,
                "latency_ms": round(1000 * (time.time() - t0), 2),
                "question_tokens": (qids[qids > 0].tolist()
                                    if qids is not None else None)}
         if detail:
+            mw = out.get("module_weights")
             res.update(self._detail_fields(
-                seq, out["module_weights"][0].cpu().numpy()))
+                seq, None if mw is None else mw[0].cpu().numpy()))
         return res
 
     def sample_info(self, index: Optional[int] = None) -> dict:

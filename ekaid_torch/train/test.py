@@ -54,6 +54,7 @@ def run_test(trainer: Trainer, checkpoint_dir: str = None,
     `out_path`. Returns (scores, predictions)."""
     lead = trainer.lead
     if checkpoint_dir:
+        trainer._refuse_lm("restoring a checkpoint")
         CheckpointManager(checkpoint_dir).restore(trainer.state,
                                                   name=checkpoint_name)
         if lead:

@@ -23,6 +23,13 @@ the exact batch where the run stopped. `evaluate(beam_size > 1)`
 decodes with beam search (`EkaidModel.decode_beam`, plain torch) from
 the loader's wire batches.
 
+With the LM answer decoder (the config's `decoder` 'lm',
+`models/lm_decoder.py`) the trainer evaluates only: the question
+encoder keeps the dataset's word vocabulary, the answers are the LM's
+ids, detokenized through `answer_vocab` (`data/vocab.AnswerIds`), no
+optimizer state is built, and `train`, snapshots and beam search are
+refused.
+
 The mesh: under `torchrun` (or any joined `torch.distributed` group)
 the group's processes, one device each, form the data axis
 (`parallel/mesh.py`): `mesh.data` is -1 or the world, and `mesh.model`
@@ -59,7 +66,7 @@ from ekaid_torch.data.pipeline import (DiffVQADataset, H5FeatureStore,
                                        Loader, learnable_dataset,
                                        synthetic_dataset,
                                        trim_batch_to_bucket)
-from ekaid_torch.data.vocab import Vocabulary, identity_vocab
+from ekaid_torch.data.vocab import AnswerIds, Vocabulary, identity_vocab
 from ekaid_torch.metrics.coco import CaptionEvaluator, CocoCaptions
 from ekaid_torch.models.ekaid import EkaidModel
 from ekaid_torch.parallel import mesh as dp
@@ -120,6 +127,10 @@ class Trainer:
         if self.lead:
             cfg.to_json(os.path.join(workdir, "cfg.json"))
         self.vocab = vocab
+        lm = cfg.decoder == "lm"
+        #: the words of the decoded answers
+        self.answer_vocab = (AnswerIds(vocab, cfg.lm.vocab_size) if lm
+                             else vocab)
         self.train_ds = train_ds
         self.eval_ds = eval_ds
         self.gt_annotations = gt_annotations
@@ -129,11 +140,12 @@ class Trainer:
                                 mesh=(self.mesh if self.mesh.distributed
                                       else None))
         self.steps_per_epoch = max(1, len(train_ds) // train_ds.batch_size)
-        self.state = init_state(self.model, cfg.train.optim,
-                                self.steps_per_epoch)
+        # the LM decoder evaluates only: no optimizer state beside it
+        self.state = None if lm else init_state(
+            self.model, cfg.train.optim, self.steps_per_epoch)
         #: the DDP-wrapped training forward when a group is joined
         self.ddp = (dp.wrap(Forward(self.model), self.mesh)
-                    if self.mesh.distributed else None)
+                    if self.mesh.distributed and not lm else None)
         self.ckpt = CheckpointManager(os.path.join(workdir, "snapshots"))
         self.stop_requested = False
         self.best = self.ckpt.best_metric()
@@ -173,8 +185,15 @@ class Trainer:
 
     # ------------------------------------------------------------ train ---
 
+    def _refuse_lm(self, what: str) -> None:
+        if self.state is None:
+            raise NotImplementedError(
+                f"{what} is refused with the LM decoder (decoder 'lm'): "
+                "the trainer evaluates only")
+
     def train(self, log_every: Optional[int] = None,
               eval_fraction: Optional[int] = None) -> Dict:
+        self._refuse_lm("training")
         cfg = self.cfg
         log_every = log_every or cfg.train.log_interval
         t = self.state.step
@@ -256,6 +275,7 @@ class Trainer:
         """On every rank together: every rank evaluates; rank 0 alone
         writes, scores and logs (the other ranks return empty
         scores)."""
+        self._refuse_lm("a snapshot")
         sd = self.state.state_dict()
         if self.lead:
             self.ckpt.save(sd, config_dict=self.cfg.to_dict())
@@ -349,7 +369,7 @@ class Trainer:
             with span("ekaid.eval.detok"):
                 for j, row in enumerate(seqs):
                     predictions[str(int(pair_index[j]))] = \
-                        self.vocab.decode(row)
+                        self.answer_vocab.decode(row)
 
         # batch i's tokens are copied to the host right behind its
         # decode, and read only once batch i + 1 is queued: the read

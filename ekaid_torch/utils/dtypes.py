@@ -1,4 +1,5 @@
-"""Mixed-precision policy: f32 params, bf16 compute, f32 softmax.
+"""Mixed-precision policy: f32 params, bf16 compute, f32 softmax; the
+LM decoder's parameters in the compute dtype (`lm_param_dtype`).
 
 `Policy.mm` is the one matrix product of the port: operands in the
 compute dtype, f32 accumulation, one rounding to the compute dtype.
@@ -66,6 +67,14 @@ def cast_params_for_inference(module: torch.nn.Module,
             if id(p) not in skip and p.dtype == torch.float32:
                 p.data = p.data.to(policy.compute_dtype)
     return module
+
+
+def lm_param_dtype(policy: Policy) -> torch.dtype:
+    """The dtype of the LM decoder's parameters: the compute dtype, as
+    the checkpoint ships them (bf16), never f32 masters: 15.7 B f32
+    parameters (63 GB) could not sit beside anything else on one card.
+    `cast_params_for_inference` finds nothing of the LM to cast."""
+    return policy.compute_dtype
 
 
 F32 = Policy(compute_dtype=torch.float32)

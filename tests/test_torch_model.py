@@ -1,6 +1,7 @@
 """ekaid_torch full model at flagship width, the batch-1 engine, the config
 copy and the device rule, against the JAX package."""
 
+import dataclasses
 import json
 from pathlib import Path
 
@@ -17,7 +18,7 @@ from ekaid_tpu.data.synthetic import synthetic_batch
 from ekaid_tpu.models.ekaid import EkaidModel as JaxModel
 from ekaid_tpu.train.train import identity_vocab as jax_identity_vocab
 from ekaid_tpu.utils.dtypes import F32 as JF32
-from ekaid_torch.config import load_config
+from ekaid_torch.config import LMConfig, load_config
 from ekaid_torch.convert import load_flax_params
 from ekaid_torch.data.vocab import identity_vocab, treebank_tokenize
 from ekaid_torch.data.vocab import Vocabulary
@@ -135,7 +136,12 @@ def test_vocab_matches_jax():
 def test_config_copy_loads_reference_yaml(name):
     got = load_config(str(CONFIGS / name)).to_dict()
     want = jax_load_config(str(CONFIGS / name)).to_dict()
+    # the port's own sections, which the reference has not: the answer
+    # decoder's switch and the LM decoder's section, at their defaults
+    extra = {k: got.pop(k) for k in ("decoder", "lm")}
     assert got == want
+    assert extra == {"decoder": "speaker",
+                     "lm": dataclasses.asdict(LMConfig())}
 
 
 def test_entry_points_raise_without_cuda(tmp_path):
