@@ -26,21 +26,32 @@ read from a flag copied to pinned host memory behind each step (the
 loop never waits for it), so a decode that stops early returns what
 the whole loop would.
 
+Where the routed experts run as grouped products (bf16 on CUDA), a
+step's forward is replayed as a CUDA graph per signature (`StepGraphs`:
+rows, cache length, dtype, device), in place of its ~2,000 launches:
+the graph reads the ids and the position and writes the cache and the
+logits at fixed addresses, which the decode takes for its own; the
+prefill and each step's bookkeeping (argmax, log-prob, the END writes,
+the end flags) stay eager. Elsewhere every step runs eagerly.
+
 Under a profiler the decode is traced as spans `ekaid.lm.connect` (the
 projector and the prompt's assembly), `ekaid.lm.prefill` and one
 `ekaid.lm.step` a step, with the counters `ekaid.lm.prefill_tokens`
-(rows x prompt length) and `ekaid.lm.steps`
-(`utils/observability.py`).
+(rows x prompt length), `ekaid.lm.steps`, and `ekaid.lm.graph` or
+`ekaid.lm.eager` (one a step, by whether the decode's forwards replay
+a graph) (`utils/observability.py`).
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
-from ekaid_torch.models.deepseek_v2 import DeepseekV2, RMSNorm
+from ekaid_torch.models.deepseek_v2 import (DeepseekV2, RMSNorm,
+                                            grouped_products_apply)
 from ekaid_torch.utils.observability import count, span
 
 #: a decoded position at or after the row's EOS
@@ -61,6 +72,7 @@ class LMDecoder(DeepseekV2):
         self.projector = nn.Sequential(
             nn.Linear(cfg.change_detector.att_dim, D), nn.GELU(),
             nn.Linear(D, D))
+        self.step_graphs = StepGraphs()
 
     def _reset(self, gen: torch.Generator):
         """Seeded weights on the parameters' device: matrices and tables
@@ -103,15 +115,22 @@ class LMDecoder(DeepseekV2):
             x = self.prompt(enc, question)
         B, L, _ = x.shape
         dev = x.device
-        cache = self.new_cache(B, L + T - 1)
-        rot = self.rope(cache.length)
+        graph = self.step_graphs(self, B, L + T - 1) if graphs_apply(x) \
+            else None
+        if graph is None:
+            cache = self.new_cache(B, L + T - 1)
+            rot = self.rope(cache.length)
+            pos = torch.full((1,), L, dtype=torch.long, device=dev)
+        else:
+            cache, rot, pos = graph.cache, graph.rot, graph.pos
+            cache.data.zero_()
+            pos.fill_(L)
         with span("ekaid.lm.prefill"):
             logits = self.prefill(x, cache, rot)
         count("ekaid.lm.prefill_tokens", B * L)
         seq = torch.full((B, T), END, dtype=torch.int32, device=dev)
         lps = torch.zeros(B, T, dtype=torch.float32, device=dev)
         ended = torch.zeros(B, dtype=torch.bool, device=dev)
-        pos = torch.full((1,), L, dtype=torch.long, device=dev)
         watch = _EndWatch(T, dev)
         for t in range(T):
             if early_exit and watch.all_ended():
@@ -126,10 +145,15 @@ class LMDecoder(DeepseekV2):
                 seq[:, t] = torch.where(ended, END, tok).to(torch.int32)
                 watch.post(t, ended)
                 if t + 1 < T:
-                    logits = self.step(torch.where(ended, eos, tok), cache,
-                                       pos, rot)
-                    pos += 1
+                    ids = torch.where(ended, eos, tok)
+                    if graph is None:
+                        logits = self.step(ids, cache, pos, rot)
+                        pos += 1
+                    else:
+                        logits = graph.replay(ids)
             count("ekaid.lm.steps", 1)
+            count("ekaid.lm.graph", int(graph is not None))
+            count("ekaid.lm.eager", int(graph is None))
         return {"seq": seq, "logprobs": lps}
 
 
@@ -163,3 +187,95 @@ class _EndWatch:
                 self.done = bool(self.flags[t])
         return self.done
 
+
+def graphs_apply(x: torch.Tensor) -> bool:
+    """Whether the decode steps over the prompt `x` replay a CUDA graph:
+    where the routed experts run as grouped products (bf16 on CUDA),
+    which read nothing back to the host. The per-expert loop reads its
+    slices' lengths on the host, so its steps run eagerly."""
+    return grouped_products_apply(x)
+
+
+class _StepGraph:
+    """One captured decode step (`DeepseekV2.step`, then the position's
+    increment) and the buffers it reads and writes at fixed addresses:
+    the latent cache, the rotations, the position, the ids and the
+    logits. A replay's logits are overwritten by the next replay, which
+    the stream orders after every read of them."""
+
+    def __init__(self, lm: DeepseekV2, batch: int, length: int):
+        self.cache = lm.new_cache(batch, length)
+        self.rot = lm.rope(length)
+        dev = self.rot.device
+        self.pos = torch.zeros(1, dtype=torch.long, device=dev)
+        self.ids = torch.zeros(batch, dtype=torch.long, device=dev)
+        self._capture(lambda: self._forward(lm))
+
+    def _forward(self, lm: DeepseekV2) -> torch.Tensor:
+        logits = lm.step(self.ids, self.cache, self.pos, self.rot)
+        self.pos += 1
+        return logits
+
+    def _capture(self, forward) -> None:
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.rot.device):
+            # other threads (a loader, a server's) may use the device
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self.logits = forward()
+
+    def replay(self, ids: torch.Tensor) -> torch.Tensor:
+        """The logits [B, V] of `ids` [B] at the position, which then
+        moves on by one."""
+        self.ids.copy_(ids)
+        self.graph.replay()
+        return self.logits
+
+
+class StepGraphs:
+    """The decode step replayed as a CUDA graph per signature: rows,
+    cache length, and the LM's dtype and device. The last
+    `GRAPH_SIGNATURES` signatures are kept, least recently used out
+    (`models/ekaid.py::EncodeGraphs` keeps the encoder's by the same
+    rules).
+
+    A signature runs eagerly at its first sight, the run that settles
+    the libraries' choices of algorithm and workspace; it is captured at
+    its second and replayed from then on. A graph reads the parameters
+    at the addresses they had when it was captured, so every graph is
+    dropped when a parameter's identity, storage or dtype changes (a
+    cast, a load that replaces `p.data`, a move to another device); an
+    update in place keeps them. A copy starts with no graph."""
+
+    def __init__(self):
+        #: signature -> None (seen once) or its `_StepGraph`, oldest first
+        self._known: "OrderedDict[tuple, Optional[_StepGraph]]" = \
+            OrderedDict()
+        self._params: Optional[list] = None
+
+    def __deepcopy__(self, memo):
+        return StepGraphs()
+
+    def __call__(self, lm: DeepseekV2, batch: int,
+                 length: int) -> Optional[_StepGraph]:
+        """The graph of `lm`'s step at `batch` rows over a cache of
+        `length` positions, or None where the signature runs eagerly."""
+        # imported here: models/ekaid.py imports this module
+        from ekaid_torch.models.ekaid import GRAPH_SIGNATURES, _state_key
+        params = []
+        _state_key(lm, params, [])
+        if params != self._params:
+            self._known.clear()
+            self._params = params
+        w = lm.lm_head.weight
+        sig = (batch, length, w.dtype, w.device)
+        if sig not in self._known:
+            self._known[sig] = None
+            while len(self._known) > GRAPH_SIGNATURES:
+                self._known.popitem(last=False)
+            return None
+        self._known.move_to_end(sig)
+        graph = self._known[sig]
+        if graph is None:
+            graph = self._known[sig] = _StepGraph(lm, batch, length)
+        return graph
